@@ -1,0 +1,222 @@
+"""Scene assembly: objects -> flat torch tables on one device.
+
+The JAX package's scene/scene.py ``assemble`` (object segments, per-object
+area prefix sums, SAH BVH reorder, the load-order -> sorted ``mapping``,
+the emissive registry in sorted space, hoisted per-light tables), keeping
+only the tables the GPU path reads. The TPU layouts (cluster tables, MXU
+coefficients, 128-lane packed rows, SSS bucket/window tables) are not
+built: the SSS exit pick runs the reference bisection over
+``prefix_area`` instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..accel import bvh as bvh_mod
+from . import material as material_mod
+from .objloader import MeshData
+
+
+@dataclasses.dataclass
+class SceneObject:
+    mesh: MeshData
+    material: material_mod.Material
+    name: str = ""
+    source_path: Optional[str] = None
+    transform: Optional[np.ndarray] = None
+    normalize: bool = False
+
+
+# tensor fields, with their dtypes; triangles are in BVH-sorted order
+_F32, _I32 = torch.float32, torch.int32
+TABLES = {
+    "tri_p1": _F32, "tri_p2": _F32, "tri_p3": _F32,   # [T, 3]
+    "tri_norm": _F32,                                 # [T, 3]
+    "tri_obj": _I32,                                  # [T] object id
+    "mat_emissive": _F32, "mat_brdf": _F32,           # [O, 3]
+    "mat_reflex": _I32, "mat_refract": _I32,          # [O]
+    "mat_refract_rate": _F32, "mat_refract_albedo": _F32,  # [O, 3]
+    "mat_refract_index": _F32,                        # [O]
+    "emit_idx": _I32,                                 # [E] sorted-space ids
+    "light_p1": _F32, "light_p2": _F32, "light_p3": _F32,  # [E, 3]
+    "light_norm": _F32, "light_emis": _F32,           # [E, 3]
+    "light_area": _F32,                               # [E]
+    "prefix_area": _F32,                              # [T] load order
+    "obj_total_area": _F32,                           # [O]
+    "mapping": _I32,                                  # [T] load -> sorted
+    "seg_begin": _I32, "seg_end": _I32,               # [O] load order, incl.
+    "bvh_left": _I32, "bvh_right": _I32,              # [K] node 0 sentinel
+    "bvh_n": _I32, "bvh_index": _I32,                 # [K]
+    "bvh_aa": _F32, "bvh_bb": _F32,                   # [K, 3]
+    "env_map": _F32,                                  # [He, We, 3]
+}
+
+
+@dataclasses.dataclass
+class SceneData:
+    """Flat scene tables (see ``TABLES``) plus static facts."""
+
+    tri_p1: torch.Tensor
+    tri_p2: torch.Tensor
+    tri_p3: torch.Tensor
+    tri_norm: torch.Tensor
+    tri_obj: torch.Tensor
+    mat_emissive: torch.Tensor
+    mat_brdf: torch.Tensor
+    mat_reflex: torch.Tensor
+    mat_refract: torch.Tensor
+    mat_refract_rate: torch.Tensor
+    mat_refract_albedo: torch.Tensor
+    mat_refract_index: torch.Tensor
+    emit_idx: torch.Tensor
+    light_p1: torch.Tensor
+    light_p2: torch.Tensor
+    light_p3: torch.Tensor
+    light_norm: torch.Tensor
+    light_emis: torch.Tensor
+    light_area: torch.Tensor
+    prefix_area: torch.Tensor
+    obj_total_area: torch.Tensor
+    mapping: torch.Tensor
+    seg_begin: torch.Tensor
+    seg_end: torch.Tensor
+    bvh_left: torch.Tensor
+    bvh_right: torch.Tensor
+    bvh_n: torch.Tensor
+    bvh_index: torch.Tensor
+    bvh_aa: torch.Tensor
+    bvh_bb: torch.Tensor
+    env_map: torch.Tensor
+    n_triangles: int
+    n_objects: int
+    n_emit: int
+    n_nodes: int
+    leaf_size: int
+    has_sss: bool
+    has_refract: bool
+    has_mirror: bool
+    bvh_depth: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_p1.device
+
+    def to(self, device) -> "SceneData":
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).to(device) for k in TABLES})
+
+
+def scene_from_numpy(fields: dict, device="cpu") -> SceneData:
+    """SceneData from a dict of NumPy arrays named as ``TABLES`` plus
+    ``leaf_size`` (extra keys ignored) — e.g. the fields of the JAX
+    package's ``assemble(..., xp=np)``. The other static facts are
+    recomputed from the tables."""
+    t = {k: torch.tensor(np.ascontiguousarray(np.asarray(fields[k])),
+                         dtype=dt, device=device) for k, dt in TABLES.items()}
+    refract = np.asarray(fields["mat_refract"])
+    reflex = np.asarray(fields["mat_reflex"])
+    left = np.asarray(fields["bvh_left"])
+    n = np.asarray(fields["bvh_n"])
+    nodes = bvh_mod.BVHArrays(left=left, right=np.asarray(fields["bvh_right"]),
+                              n=n, index=np.asarray(fields["bvh_index"]),
+                              aa=np.asarray(fields["bvh_aa"]),
+                              bb=np.asarray(fields["bvh_bb"]))
+    return SceneData(
+        **t,
+        n_triangles=int(len(fields["tri_p1"])),
+        n_objects=int(len(refract)),
+        n_emit=int(len(fields["emit_idx"])),
+        n_nodes=int(len(left)),
+        leaf_size=int(fields["leaf_size"]),
+        has_sss=bool((refract == material_mod.SUB_SURFACE).any()),
+        has_refract=bool((refract == material_mod.DIR_REFRACT).any()),
+        has_mirror=bool((reflex == material_mod.MIRROR).any()),
+        bvh_depth=bvh_mod.tree_depth(nodes),
+    )
+
+
+def _triangle_area(p1, p2, p3) -> np.ndarray:
+    """0.5 * |(p2-p1) x (p3-p1)| (PathTrace.cu:897-903), the JAX
+    package's vecmath.triangle_area on NumPy."""
+    a, b = p2 - p1, p3 - p1
+    c = np.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                  a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                  a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], axis=-1)
+    return 0.5 * np.sqrt(np.sum(c * c, axis=-1))
+
+
+def assemble_numpy(objects: List[SceneObject], env_map: np.ndarray,
+                   leaf_size: int = 8, bvh_method: str = "sah") -> dict:
+    """Build the ``TABLES`` arrays on the host (NumPy)."""
+    if not objects:
+        raise ValueError("scene needs at least one object")
+    p1 = np.concatenate([o.mesh.p1 for o in objects])
+    p2 = np.concatenate([o.mesh.p2 for o in objects])
+    p3 = np.concatenate([o.mesh.p3 for o in objects])
+    norm = np.concatenate([o.mesh.norm for o in objects])
+    t = len(p1)
+    obj_idx = np.concatenate(
+        [np.full(o.mesh.n_triangles, i, np.int32) for i, o in enumerate(objects)]
+    )
+
+    # per-object load-order segments (Obj_seg, PathTrace.cu:435-436)
+    counts = np.array([o.mesh.n_triangles for o in objects], np.int64)
+    seg_end = np.cumsum(counts) - 1
+    seg_begin = seg_end - counts + 1
+
+    # area prefix sums in load order (PathTrace.cu:1538-1546)
+    areas = _triangle_area(p1.astype(np.float64), p2.astype(np.float64),
+                           p3.astype(np.float64))
+    prefix_area = np.empty(t, np.float32)
+    for b, e in zip(seg_begin, seg_end):
+        prefix_area[b : e + 1] = np.cumsum(areas[b : e + 1])
+    obj_total_area = prefix_area[seg_end].astype(np.float32)
+
+    # BVH build reorders triangles (PathTrace.cu:1565)
+    nodes, perm = bvh_mod.build(p1, p2, p3, leaf_size=leaf_size, method=bvh_method)
+    p1, p2, p3, norm, obj_idx = (a[perm] for a in (p1, p2, p3, norm, obj_idx))
+    mapping = np.empty(t, np.int32)
+    mapping[perm] = np.arange(t, dtype=np.int32)
+
+    # emissive registry in sorted space (PathTrace.cu:1596-1600)
+    mats = [o.material for o in objects]
+    emissive = np.array([m.emissive for m in mats], np.float32)
+    is_emissive_obj = (emissive > material_mod.EMISSIVE_THRESHOLD).any(axis=1)
+    emit_idx = np.nonzero(is_emissive_obj[obj_idx])[0].astype(np.int32)
+
+    return dict(
+        tri_p1=p1, tri_p2=p2, tri_p3=p3, tri_norm=norm, tri_obj=obj_idx,
+        mat_emissive=emissive,
+        mat_brdf=np.array([m.brdf for m in mats], np.float32),
+        mat_reflex=np.array([m.reflex_mode for m in mats], np.int32),
+        mat_refract=np.array([m.refract_mode for m in mats], np.int32),
+        mat_refract_rate=np.array([m.refract_rate for m in mats], np.float32),
+        mat_refract_albedo=np.array([m.refract_albedo for m in mats], np.float32),
+        mat_refract_index=np.array([m.refract_index for m in mats], np.float32),
+        emit_idx=emit_idx,
+        light_p1=p1[emit_idx], light_p2=p2[emit_idx], light_p3=p3[emit_idx],
+        light_norm=norm[emit_idx],
+        light_emis=emissive[obj_idx[emit_idx]],
+        light_area=_triangle_area(p1[emit_idx], p2[emit_idx],
+                                  p3[emit_idx]).astype(np.float32),
+        prefix_area=prefix_area, obj_total_area=obj_total_area,
+        mapping=mapping, seg_begin=seg_begin.astype(np.int32),
+        seg_end=seg_end.astype(np.int32),
+        bvh_left=nodes.left, bvh_right=nodes.right, bvh_n=nodes.n,
+        bvh_index=nodes.index, bvh_aa=nodes.aa, bvh_bb=nodes.bb,
+        env_map=np.asarray(env_map, np.float32),
+        leaf_size=leaf_size,
+    )
+
+
+def assemble(objects: List[SceneObject], env_map: np.ndarray,
+             leaf_size: int = 8, bvh_method: str = "sah",
+             device="cpu") -> SceneData:
+    """Build the scene on the host and place its tables on ``device``."""
+    return scene_from_numpy(assemble_numpy(objects, env_map, leaf_size,
+                                           bvh_method), device)
