@@ -2,18 +2,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``jaderaytracerendering_tpu_torch``) on the
+Drives the port's main paths (``jaderaytracerendering_tpu_torch``) on the
 card and checks its CUDA kernels against their plain PyTorch versions:
 
   0. environment: a CUDA device; the card's name and power limit;
-  1. build: compiles csrc/mega.cu with nvcc (timed);
-  2. traversal: 2^16 random rays through the kernel's BVH walk
-     (``bvh_nearest``) and the plain torch walk on the jade scene;
+  1. build: compiles csrc/mega.cu and csrc/pool.cu with nvcc (timed);
+  2. traversal: 2^16 random rays through ``trace_segments`` (one segment)
+     and the plain torch walk on the jade scene;
   3. megakernel vs plain: jade, 96x96, 4 spp, depth 6, the whole image;
   4. main path: the render CLI at its defaults (jade, 20k statue
      triangles, 1024x1024, 16 spp, depth 16) through the megakernel, with
      the launch counter, the film and the BMP checked, and the film held
-     against the plain version on a random subset of its pixels.
+     against the plain version on a random subset of its pixels;
+  5. trace kernel: 2^16 random rays x 4 stacked segments (random
+     exclusions, segment 2 any-hit) against the plain per-segment walk;
+  6. spawn kernel: one ``spawn_primary`` at 2^16 lanes with a random fresh
+     mask, the queue running out inside the call, against the plain one;
+  7. pool vs plain: jade, 96x96, 4 spp, depth 6, 8192 lanes, the whole
+     image through the kernel route and the plain route, and one
+     iteration's front and resolve against their plain versions;
+  8. pool main path: the render CLI with ``--engine pool`` at its
+     defaults, held against phase 4's megakernel film (same samples,
+     other summation order) and its useful-ray total (equal); then each
+     pool kernel at the main path's shapes (the pool state after a few
+     iterations) against its plain version, timed;
+  9. scan on the card: ``render_film(engine="scan")`` at phase 7's size
+     through the trace kernel, against phase 7's plain film.
 
 Every phase prints one line; any failure raises (exit code != 0). The
 line before the last is the kernels' JSON record, the last line is
@@ -42,6 +56,24 @@ MAX_OUTLIER_FRAC = 1e-3          # share of pixels allowed outside that bound
 MEAN_RTOL = 1e-4                 # image mean, relative
 TRAV_ID_FRAC = 0.9999            # traversal: share of rays with equal ids
 TRAV_T_RTOL = 1e-5               # traversal: t where ids differ
+TRAV_T_SAME_RTOL = 1e-6          # traversal: t where ids are equal
+STATE_RTOL = 1e-5                # one pool step, kernel vs plain: each group of
+                                 # float rows (src, dir, T, L, le0; segment
+                                 # origins, directions) within this share of
+                                 # the group's own max
+
+# roofline of one H100 SXM (published peak rates)
+PEAK_BYTES = 3.35e12             # HBM bytes/s
+PEAK_F32 = 67e12                 # FP32 operations/s outside the tensor cores
+# float operations per test, counted from csrc/path.cuh: ray_aabb (3 slabs
+# of 2 sub, 2 mul, min, max; 2 fmin, 2 fmax, 3 compares) and ray_triangle
+# (Moller-Trumbore: 2 edges, 2 crosses, 4 dots, a reciprocal, 4 compares)
+BOX_OPS, TRI_OPS = 25, 57
+# float operations per active lane outside the walks, counted from the
+# device functions (bounce_front_dev + the segment rays; the resolve
+# recomputes the front, then lights, env lookups, RR and the composite);
+# the camera ray and env lookup of a spawned sample
+FRONT_OPS, RESOLVE_OPS, SPAWN_OPS = 150, 300, 80
 
 
 def log(msg: str) -> None:
@@ -66,14 +98,42 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_each(fns) -> float:
+    """Median ms of single calls (each on its own prepared input)."""
+    return float(np.median([cuda_ms(f) for f in fns]))
+
+
+def host_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, what binds): the larger of bytes / HBM rate and FP32
+    operations / FP32 peak."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def scene_bytes(sd, keys) -> int:
+    return sum(getattr(sd, k).numel() * getattr(sd, k).element_size() for k in keys)
+
+
+WALK_TABLES = ("tri_p1", "tri_p2", "tri_p3", "bvh_left", "bvh_right", "bvh_n",
+               "bvh_index", "bvh_aa", "bvh_bb")
+
+
 def compare_images(kernel: torch.Tensor, plain: torch.Tensor, what: str):
     """kernel/plain [3, P] radiance sums -> (max_abs_err, n_outside)."""
     a, b = kernel.double().cpu(), plain.double().cpu()
     if not bool(torch.isfinite(a).all()):
         raise AssertionError(f"{what}: kernel output is not finite")
     err = (a - b).abs()
-    bound = ATOL_FRAC * float(b.abs().max()) + RTOL * b.abs()
-    outside = int((err > bound).any(dim=0).sum())
+    bound_ = ATOL_FRAC * float(b.abs().max()) + RTOL * b.abs()
+    outside = int((err > bound_).any(dim=0).sum())
     n = a.shape[1]
     mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(b.mean())), 1e-30)
     if outside > MAX_OUTLIER_FRAC * n or mean_rel > MEAN_RTOL:
@@ -84,15 +144,170 @@ def compare_images(kernel: torch.Tensor, plain: torch.Tensor, what: str):
     return float(err.max()), outside, mean_rel
 
 
+def compare_hits(bt_k, bi_k, bt_p, bi_p, anyhit_seg: int, what: str):
+    """Segment trace rows, kernel vs plain: hit booleans equal everywhere;
+    on the nearest-hit rays ids equal on >= TRAV_ID_FRAC, t within
+    TRAV_T_SAME_RTOL where the ids are equal and TRAV_T_RTOL where they
+    differ -> (ids differing, max t rel err)."""
+    from jaderaytracerendering_tpu_torch.ops.kernels import INF
+
+    hk, hp = bt_k < INF, bt_p < INF
+    if bool((hk != hp).any()):
+        raise AssertionError(f"{what}: {int((hk != hp).sum())} rays differ in hit/miss")
+    near = torch.ones(hk.shape[0], dtype=torch.bool, device=hk.device)
+    if 0 <= anyhit_seg < hk.shape[0]:
+        near[anyhit_seg] = False
+    hk, bt_k, bt_p, bi_k, bi_p = hk[near], bt_k[near], bt_p[near], bi_k[near], bi_p[near]
+    diff = bi_k != bi_p
+    n_diff, n = int(diff.sum()), diff.numel()
+    t_rel = (bt_k - bt_p).abs() / bt_p.abs().clamp_min(1e-30)
+    t_rel_diff = float(t_rel[diff].max()) if n_diff else 0.0
+    same = hk & ~diff
+    t_rel_same = float(t_rel[same].max()) if bool(same.any()) else 0.0
+    if (n_diff > (1 - TRAV_ID_FRAC) * n or t_rel_diff > TRAV_T_RTOL
+            or t_rel_same > TRAV_T_SAME_RTOL):
+        raise AssertionError(f"{what}: {n_diff}/{n} ids differ, t rel err "
+                             f"{t_rel_diff:.3e} where they do, {t_rel_same:.3e} "
+                             f"where they do not")
+    return n_diff, float(t_rel[hk].max()) if bool(hk.any()) else 0.0
+
+
+def compare_rows(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """One group of float rows, kernel vs plain: finite, and within
+    STATE_RTOL of the group's own max -> max abs err."""
+    if not a.numel():
+        return 0.0
+    e = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    if not bool(torch.isfinite(a).all()) or e > STATE_RTOL * scale:
+        raise AssertionError(f"{what}: max abs err {e:.3e} (group max {scale:.3e}, "
+                             f"allowed {STATE_RTOL} of it)")
+    return e
+
+
+def compare_states(k, p, what: str) -> float:
+    """Two pool states after the same step: integers and counters equal,
+    each group of lane floats (src, dir, T, L, le0) by ``compare_rows``,
+    the film per pixel by ``compare_images`` -> max abs err of the floats."""
+    from jaderaytracerendering_tpu_torch.ops.lanes import F_DIR, F_L, F_LE0, F_SRC, F_T
+
+    bad = int((k.is_ != p.is_).sum())
+    if bad or not torch.equal(k.cnt, p.cnt):
+        raise AssertionError(f"{what}: {bad} lane ints differ; counters "
+                             f"{k.cnt.tolist()} vs {p.cnt.tolist()}")
+    err = max(compare_rows(k.fs[r:r + 3], p.fs[r:r + 3], f"{what} {name}")
+              for name, r in (("src", F_SRC), ("dir", F_DIR), ("T", F_T), ("L", F_L),
+                              ("le0", F_LE0)))
+    film_err, _, _ = compare_images(k.film.T, p.film.T, f"{what} film")
+    return max(err, film_err)
+
+
+def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
+    """The pool state after ``iters`` iterations at ``m`` lanes, then each
+    pool kernel once on it against its plain version on the same input.
+    Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    from jaderaytracerendering_tpu_torch.core import camera as camera_mod
+    from jaderaytracerendering_tpu_torch.integrator import pool
+    from jaderaytracerendering_tpu_torch.ops import (bounce_front, bounce_resolve, kernels,
+                                                     spawn_front, trace, traverse)
+    from jaderaytracerendering_tpu_torch.ops.lanes import I_ACTIVE, PoolState
+
+    eye, rot = camera_mod.camera_tensors(cam, sd.device)
+    npix = cfg.width * cfg.height
+    st = PoolState.create(sd, cfg, eye, rot, m, npix * cfg.spp, 0)
+    pool.run_pool(st, pool.KERNELS, iters)
+    torch.cuda.synchronize()
+    n_seg, e_cnt = sd.n_emit + 2, sd.n_emit
+    n_active = int((st.is_[I_ACTIVE] != 0).sum())
+    lane_in = 4 * m  # every lane reads its active flag
+    out = {}
+
+    # front: a pure function of the state
+    o, d, x = bounce_front.front_bounce(st)
+    op, dp, xp = bounce_front.front_bounce_plain(st)
+    if not torch.equal(x, xp):
+        raise AssertionError(f"{what} front: {int((x != xp).sum())} exclusion ids differ")
+    err = max(compare_rows(o, op, f"{what} front origins"),
+              compare_rows(d, dp, f"{what} front directions"))
+    b = bound(lane_in + n_active * 40 + n_seg * m * 28 + scene_bytes(sd, ("tri_norm",)),
+              n_active * FRONT_OPS)
+    out["front_bounce"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: bounce_front.front_bounce(st), reps=5),
+        plain_ms=host_ms(lambda: bounce_front.front_bounce_plain(st)),
+        bound_ms=b[0], bound_by=b[1])
+
+    # trace: the kernel's segments through both walks
+    bt, bi = trace.trace_segments(sd, o, d, x, e_cnt)
+    t0 = time.perf_counter()
+    with traverse.count_work() as work:
+        btp, bip = trace.trace_segments_plain(sd, o, d, x, e_cnt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_diff, _ = compare_hits(bt, bi, btp, bip, e_cnt, f"{what} trace")
+    hit = bt < kernels.INF
+    hit[e_cnt] = False
+    t_err = float((bt[hit] - btp[hit]).abs().max()) if bool(hit.any()) else 0.0
+    b = bound(n_seg * m * 36 + scene_bytes(sd, WALK_TABLES),
+              work["boxes"] * BOX_OPS + work["tris"] * TRI_OPS)
+    out["trace_segments"] = dict(
+        max_abs_err=t_err, ms=cuda_ms(lambda: trace.trace_segments(sd, o, d, x, e_cnt),
+                                      reps=3),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], ids_differ=n_diff,
+        work=work)
+
+    # resolve: in place, so each call gets its own copy of the state
+    ks = [st.clone() for _ in range(4)]
+    ps = st.clone()
+    bounce_resolve.resolve_bounce(ks[0], bt, bi)
+    plain_ms = host_ms(lambda: bounce_resolve.resolve_bounce_plain(ps, bt, bi))
+    err = compare_states(ks[0], ps, f"{what} resolve")
+    ms = cuda_ms_each([lambda s=s: bounce_resolve.resolve_bounce(s, bt, bi) for s in ks[1:]])
+    b = bound(lane_in + n_active * (80 + n_seg * 8) + n_active * 72 + 2 * npix * 12
+              + scene_bytes(sd, ("tri_norm", "tri_obj", "env_map")),
+              n_active * RESOLVE_OPS)
+    out["resolve_bounce"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b[0], bound_by=b[1])
+
+    # spawn on the resolved state: queue cut, lane ints and counters equal
+    after = ks[0]
+    ks = [after.clone() for _ in range(4)]
+    ps = after.clone()
+    aux_k = torch.empty((8, m), dtype=torch.float32, device=sd.device)
+    aux_p = torch.empty_like(aux_k)
+    spawn_front.spawn_primary(ks[0], aux_k)
+    with traverse.count_work() as work:
+        plain_ms = host_ms(lambda: spawn_front.spawn_primary_plain(ps, aux_p))
+    got = aux_p[7] != 0
+    if not torch.equal(aux_k[7] != 0, got):
+        raise AssertionError(f"{what} spawn: got differs on "
+                             f"{int(((aux_k[7] != 0) != got).sum())} lanes")
+    err = compare_states(ks[0], ps, f"{what} spawn")
+    n_got = int(got.sum())
+    ms = cuda_ms_each([lambda s=s: spawn_front.spawn_primary(s) for s in ks[1:]])
+    b = bound(lane_in + n_got * 96 + 2 * npix * 12 + scene_bytes(sd, WALK_TABLES),
+              work["boxes"] * BOX_OPS + work["tris"] * TRI_OPS + n_got * SPAWN_OPS)
+    out["spawn_primary"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                                bound_by=b[1], got=n_got)
+    out["_state"] = dict(lanes=m, active=n_active, iterations=iters)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
     from jaderaytracerendering_tpu_torch.cli import render as cli_render
     from jaderaytracerendering_tpu_torch.core import camera as camera_mod
+    from jaderaytracerendering_tpu_torch.core.film import Film
+    from jaderaytracerendering_tpu_torch.integrator import pool, wavefront
+    from jaderaytracerendering_tpu_torch.integrator import render as trender
     from jaderaytracerendering_tpu_torch.integrator.render import render_batch
     from jaderaytracerendering_tpu_torch.models import demo
-    from jaderaytracerendering_tpu_torch.ops import build, mega as megak, traverse
+    from jaderaytracerendering_tpu_torch.ops import (build, kernels, mega as megak,
+                                                     spawn_front, trace, traverse)
+    from jaderaytracerendering_tpu_torch.ops.lanes import (C_DONE, C_NEXT, C_RAYS,
+                                                           I_ACTIVE, I_PIX, I_SLOT, I_SMP,
+                                                           PoolState)
     from jaderaytracerendering_tpu_torch.scene.scene import assemble
     from jaderaytracerendering_tpu_torch.utils.config import RenderConfig
 
@@ -102,9 +317,13 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    megak.library()
-    log(f"phase 1 build: csrc/mega.cu with nvcc {' '.join(build.NVCC_FLAGS)} "
-        f"in {time.perf_counter() - t0:.1f}s")
+    kernels.library()
+    log(f"phase 1 build: csrc/{' + csrc/'.join(kernels.SOURCES)} with nvcc "
+        f"{' '.join(build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f}s")
+    for line in build.library_path("kernels", kernels.SOURCES).with_suffix(".log") \
+            .read_text().splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            log("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
 
     # ---- phase 2: traversal ----------------------------------------------
     ds = demo.jade_scene(n_buddha_tris=MAIN_TRIS)
@@ -115,25 +334,18 @@ def main() -> None:
     tgt = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
     d = (tgt - o).astype(np.float32)
     ex = rng.integers(-1, sd.n_triangles, n).astype(np.int32)
-    o_t, d_t = torch.tensor(o, device=dev), torch.tensor(d, device=dev)
-    ex_t = torch.tensor(ex, device=dev)
-    hk, ik, tk = megak.bvh_nearest(sd, o_t, d_t, ex_t)
-    hp, ip, tp = traverse.nearest_hit_bvh(o_t, d_t, ex_t, sd)
+    o_t = torch.tensor(o.T[None].copy(), device=dev)
+    d_t = torch.tensor(d.T[None].copy(), device=dev)
+    ex_t = torch.tensor(ex[None], device=dev)
+    tk, ik = trace.trace_segments(sd, o_t, d_t, ex_t)
+    tp, ip = trace.trace_segments_plain(sd, o_t, d_t, ex_t)
     torch.cuda.synchronize()
-    trav_ms = cuda_ms(lambda: megak.bvh_nearest(sd, o_t, d_t, ex_t), reps=5)
-    trav_plain_ms = cuda_ms(lambda: traverse.nearest_hit_bvh(o_t, d_t, ex_t, sd))
-    diff = ik != ip
-    n_diff = int(diff.sum())
-    if bool((hk != hp).any()):
-        raise AssertionError(f"traversal: {int((hk != hp).sum())} rays differ in hit/miss")
-    t_rel = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))
-    t_rel_diff = float(t_rel[diff].max()) if n_diff else 0.0
-    if n_diff > (1 - TRAV_ID_FRAC) * n or t_rel_diff > TRAV_T_RTOL:
-        raise AssertionError(f"traversal: {n_diff}/{n} ids differ, t rel err "
-                             f"{t_rel_diff:.3e} where they do")
+    trav_ms = cuda_ms(lambda: trace.trace_segments(sd, o_t, d_t, ex_t), reps=5)
+    trav_plain_ms = host_ms(lambda: trace.trace_segments_plain(sd, o_t, d_t, ex_t))
+    n_diff, t_rel = compare_hits(tk, ik, tp, ip, -1, "phase 2 traversal")
     log(f"phase 2 traversal: {n} rays, jade {sd.n_triangles} tris, "
-        f"{float(hk.float().mean()):.3f} hit; ids differ {n_diff}; max t rel err "
-        f"{float(t_rel[hk].max()):.3e}; kernel {trav_ms:.3f} ms, plain torch "
+        f"{float((tk < kernels.INF).float().mean()):.3f} hit; ids differ {n_diff}; max t "
+        f"rel err {t_rel:.3e}; trace_segments {trav_ms:.3f} ms, plain torch "
         f"{trav_plain_ms:.1f} ms [{gpu}]")
 
     # ---- phase 3: megakernel vs plain on one whole image -------------------
@@ -143,22 +355,30 @@ def main() -> None:
     torch.cuda.synchronize()
     ms3 = cuda_ms(lambda: megak.mega_render(sd, eye, rot, cfg3, 0, cfg3.spp), reps=5)
     t_plain = time.perf_counter()
-    out_p = megak.mega_render_plain(sd, eye, rot, cfg3, 0, cfg3.spp)
+    with traverse.count_work() as work3:
+        out_p = megak.mega_render_plain(sd, eye, rot, cfg3, 0, cfg3.spp)
     torch.cuda.synchronize()
     plain_ms3 = (time.perf_counter() - t_plain) * 1e3
     err3, outside3, mean3 = compare_images(out_k[:3], out_p[:3], "phase 3")
     rays_eq = float((out_k[3] == out_p[3]).float().mean())
+    npix3 = cfg3.width * cfg3.height
+    rays3 = float(out_p[3].sum())
+    # ops: the walks' tests plus the shading of each bounce (front + resolve)
+    bound3 = bound(scene_bytes(sd, list(kernels.TABLES)) + 16 * npix3,
+                   work3["boxes"] * BOX_OPS + work3["tris"] * TRI_OPS
+                   + rays3 / (sd.n_emit + 2) * (FRONT_OPS + RESOLVE_OPS))
     log(f"phase 3 mega vs plain: jade 96x96 4spp depth 6: max abs err {err3:.3e} "
-        f"(max {float(out_p[:3].abs().max()):.3e}), {outside3}/{96 * 96} pixels "
+        f"(max {float(out_p[:3].abs().max()):.3e}), {outside3}/{npix3} pixels "
         f"outside, mean rel diff {mean3:.3e}, ray counts equal on {rays_eq:.4f}; "
-        f"kernel {ms3:.2f} ms, plain torch {plain_ms3:.0f} ms [{gpu}]")
+        f"kernel {ms3:.2f} ms, plain torch {plain_ms3:.0f} ms, bound {bound3[0]:.4f} ms "
+        f"({bound3[1]}; {work3['boxes']} box, {work3['tris']} triangle tests) [{gpu}]")
 
     # ---- phase 4: the main path through the CLI ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
         bmp = os.path.join(tmp, "main.bmp")
-        megak.reset_launches()
+        kernels.reset_launches()
         film, stats = cli_render.main(["--out", bmp])
-        launches = dict(megak.LAUNCHES)
+        launches = dict(kernels.LAUNCHES)
         cfg4 = RenderConfig()
         if launches["mega_render"] < 1:
             raise AssertionError(f"main path did not launch mega_render: {launches}")
@@ -178,17 +398,19 @@ def main() -> None:
                                  f"film {tuple(film.accum.shape)}")
     secs = stats["seconds"]
     samples = cfg4.width * cfg4.height * cfg4.spp
+    mega_film, mega_rays, mega_secs = film.accum, stats["rays"], secs
     log(f"phase 4 main path: jade {MAIN_TRIS} statue tris ({sd.n_triangles} total) "
         f"{cfg4.width}x{cfg4.height} {cfg4.spp}spp depth {cfg4.max_depth}: "
         f"{secs:.3f} s, {samples / secs / 1e6:.3f} Msamples/s, "
-        f"{stats['rays'] / secs / 1e6:.3f} useful Mrays/s, launches {launches}, {n_neg} negative channel "
-        f"sums, BMP {size} bytes [{gpu}]")
+        f"{stats['rays'] / secs / 1e6:.3f} useful Mrays/s, launches {launches}, {n_neg} "
+        f"negative channel sums, BMP {size} bytes [{gpu}]")
 
     # the main path's film against the plain version on random pixels
     npix = cfg4.width * cfg4.height
     ids = torch.tensor(np.sort(rng.choice(npix, 4096, replace=False)), device=dev)
     t_plain = time.perf_counter()
-    rad_p, _ = render_batch(sd, eye, rot, ids, 0, cfg4, cfg4.spp)
+    rad_p, _ = render_batch(sd, eye, rot, ids, 0, cfg4, cfg4.spp,
+                            query=wavefront.nearest_planes_plain)
     torch.cuda.synchronize()
     plain_sub_s = time.perf_counter() - t_plain
     rad_k = film.accum.reshape(-1, 3)[ids]
@@ -199,20 +421,163 @@ def main() -> None:
         f"mean rel diff {mean4:.3e} (plain {plain_sub_s:.1f} s); one mega_render "
         f"at the main-path shape {main_ms:.1f} ms [{gpu}]")
 
-    kernels = [{
-        "name": "mega_render",
-        "route": "cuda",
-        "source": "jaderaytracerendering_tpu_torch/csrc/mega.cu",
+    # ---- phase 5: trace kernel, stacked segments ---------------------------
+    n_seg, e_cnt = sd.n_emit + 2, sd.n_emit
+    o5 = torch.tensor(rng.uniform(-1.5, 1.5, (n_seg, 3, n)).astype(np.float32), device=dev)
+    d5 = torch.tensor(rng.uniform(-0.6, 0.6, (n_seg, 3, n)).astype(np.float32),
+                      device=dev) - o5
+    x5 = torch.tensor(rng.integers(-1, sd.n_triangles, (n_seg, n)).astype(np.int32),
+                      device=dev)
+    bt5, bi5 = trace.trace_segments(sd, o5, d5, x5, e_cnt)
+    t_plain = time.perf_counter()
+    with traverse.count_work() as work5:
+        btp5, bip5 = trace.trace_segments_plain(sd, o5, d5, x5, e_cnt)
+    torch.cuda.synchronize()
+    plain_ms5 = (time.perf_counter() - t_plain) * 1e3
+    n_diff5, t_rel5 = compare_hits(bt5, bi5, btp5, bip5, e_cnt, "phase 5")
+    ms5 = cuda_ms(lambda: trace.trace_segments(sd, o5, d5, x5, e_cnt), reps=5)
+    bound5 = bound(n_seg * n * 36 + scene_bytes(sd, WALK_TABLES),
+                   work5["boxes"] * BOX_OPS + work5["tris"] * TRI_OPS)
+    log(f"phase 5 trace: {n} rays x {n_seg} segments (segment {e_cnt} any-hit), "
+        f"{float((bt5 < kernels.INF).float().mean()):.3f} hit; hit flags equal; ids differ "
+        f"{n_diff5}; max t rel err {t_rel5:.3e}; kernel {ms5:.3f} ms, plain torch "
+        f"{plain_ms5:.0f} ms, bound {bound5[0]:.4f} ms ({bound5[1]}) [{gpu}]")
+
+    # ---- phase 6: spawn kernel, the queue running out inside the call -----
+    st6 = PoolState.create(sd, cfg4, eye, rot, n, npix * cfg4.spp, 0)
+    st6.is_[I_ACTIVE] = torch.tensor(rng.integers(0, 2, n).astype(np.int32), device=dev)
+    for row in (I_SLOT, I_PIX, I_SMP):
+        st6.is_[row] = torch.tensor(rng.integers(0, npix, n).astype(np.int32), device=dev)
+    n_fresh = int((st6.is_[I_ACTIVE] == 0).sum())
+    st6.cnt[C_NEXT] = st6.total - n_fresh // 2
+    k6, p6 = st6.clone(), st6.clone()
+    aux_k, aux_p = (torch.empty((8, n), dtype=torch.float32, device=dev) for _ in range(2))
+    spawn_front.spawn_primary(k6, aux_k)
+    spawn_front.spawn_primary_plain(p6, aux_p)
+    torch.cuda.synchronize()
+    got = aux_p[7] != 0
+    consumed = int(k6.cnt[C_NEXT] - st6.cnt[C_NEXT])
+    if not (torch.equal(aux_k[7] != 0, got) and torch.equal(k6.is_[I_SLOT:], p6.is_[I_SLOT:])
+            and torch.equal(k6.cnt, p6.cnt) and consumed == n_fresh // 2):
+        raise AssertionError(f"phase 6: got/slot/pix/smp/counters differ (consumed "
+                             f"{consumed}, want {n_fresh // 2}; {k6.cnt.tolist()} vs "
+                             f"{p6.cnt.tolist()})")
+    err6 = compare_states(k6, p6, "phase 6 state")  # hit ids equal: the I_HIT row
+    hit6 = got & (aux_p[3] < kernels.INF)
+    dir_err6 = compare_rows(aux_k[0:3][:, got], aux_p[0:3][:, got], "phase 6 direction")
+    sky_err6 = compare_rows(aux_k[4:7][:, got], aux_p[4:7][:, got], "phase 6 sky")
+    if not torch.equal(aux_k[3] < kernels.INF, aux_p[3] < kernels.INF):
+        raise AssertionError("phase 6: primary hit flags differ")
+    t_err6 = float((aux_k[3][hit6] - aux_p[3][hit6]).abs().max())
+    t_rel6 = float(((aux_k[3][hit6] - aux_p[3][hit6]).abs() / aux_p[3][hit6]).max())
+    if t_rel6 > TRAV_T_SAME_RTOL:
+        raise AssertionError(f"phase 6: primary hit t rel err {t_rel6:.3e}")
+    log(f"phase 6 spawn: {n} lanes, {n_fresh} fresh, queue of {n_fresh // 2} left: got "
+        f"{int(got.sum())}, consumed {consumed}; got/slot/pix/smp/counters equal; max abs "
+        f"err direction {dir_err6:.3e}, hit t {t_err6:.3e}, sky {sky_err6:.3e}, "
+        f"state {err6:.3e} [{gpu}]")
+    if k6.cnt[C_DONE] != p6.cnt[C_DONE]:
+        raise AssertionError("phase 6: finished-sample counters differ")
+
+    # ---- phase 7: pool vs plain, whole image -------------------------------
+    m7 = 8192
+    s7k, s7p = {}, {}
+    kernels.reset_launches()
+    f7k = pool.render_film_pool(sd, ds.camera, cfg3, stats=s7k, pool_m=m7)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    st7 = PoolState.create(sd, cfg3, eye, rot, m7, npix3 * cfg3.spp, 0)
+    s7p["iterations"] = pool.run_pool(st7, pool.PLAIN)
+    s7p["rays"] = float(st7.cnt[C_RAYS])
+    f7p = Film(st7.film.reshape(cfg3.height, cfg3.width, 3), cfg3.spp)
+    torch.cuda.synchronize()
+    plain_s7 = time.perf_counter() - t_plain
+    ms7 = cuda_ms(lambda: pool.render_film_pool(sd, ds.camera, cfg3, pool_m=m7))
+    err7, outside7, mean7 = compare_images(f7k.accum.reshape(-1, 3).T,
+                                           f7p.accum.reshape(-1, 3).T, "phase 7")
+    if s7k["rays"] != s7p["rays"] or s7k["iterations"] != s7p["iterations"]:
+        raise AssertionError(f"phase 7: kernel route {s7k} vs plain route {s7p}")
+    it7 = hold_pool_kernels(sd, ds.camera, cfg3, m7, 3, "phase 7")
+    log(f"phase 7 pool vs plain: jade 96x96 4spp depth 6, {m7} lanes: max abs err "
+        f"{err7:.3e} (max {float(f7p.accum.abs().max()):.3e}), {outside7}/{npix3} outside, "
+        f"mean rel diff {mean7:.3e}; useful rays {s7k['rays']:.0f} equal, iterations "
+        f"{s7k['iterations']}; kernel route {ms7:.2f} ms, plain route {plain_s7:.1f} s; "
+        f"one iteration: front err {it7['front_bounce']['max_abs_err']:.3e}, resolve err "
+        f"{it7['resolve_bounce']['max_abs_err']:.3e}, spawn err "
+        f"{it7['spawn_primary']['max_abs_err']:.3e} [{gpu}]")
+
+    # ---- phase 8: the pool main path through the CLI -----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        film8, stats8 = cli_render.main(["--engine", "pool",
+                                         "--out", os.path.join(tmp, "pool.bmp")])
+        launches8 = dict(kernels.LAUNCHES)
+    pool_names = ("spawn_primary", "trace_segments", "front_bounce", "resolve_bounce")
+    if min(launches8[k] for k in pool_names) < 1 or launches8["mega_render"]:
+        raise AssertionError(f"pool main path launches {launches8}")
+    err8, outside8, mean8 = compare_images(film8.accum.reshape(-1, 3).T,
+                                           mega_film.reshape(-1, 3).T, "phase 8 vs mega")
+    if stats8["rays"] != mega_rays:
+        raise AssertionError(f"phase 8: useful rays {stats8['rays']} vs mega {mega_rays}")
+    secs8 = stats8["seconds"]
+    log(f"phase 8 pool main path: jade {MAIN_TRIS} {cfg4.width}x{cfg4.height} "
+        f"{cfg4.spp}spp depth {cfg4.max_depth}, {min(pool.POOL_LANES, samples)} lanes: "
+        f"{secs8:.3f} s ({secs8 / mega_secs:.2f}x mega), {samples / secs8 / 1e6:.3f} "
+        f"Msamples/s, {stats8['rays'] / secs8 / 1e6:.3f} useful Mrays/s, "
+        f"{stats8['iterations']} iterations, launches {launches8}; vs mega film: max abs "
+        f"err {err8:.3e}, {outside8} outside, mean rel diff {mean8:.3e}; useful rays "
+        f"{stats8['rays']:.0f} equal [{gpu}]")
+    it8 = hold_pool_kernels(sd, ds.camera, cfg4, min(pool.POOL_LANES, samples), 3,
+                            "phase 8")
+    log("phase 8 kernels at the main path's shapes ("
+        + ", ".join(f"{k} {v}" for k, v in it8["_state"].items()) + "): "
+        + "; ".join(f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.0f} ms, bound "
+                    f"{v['bound_ms']:.4f} ms by {v['bound_by']}, err {v['max_abs_err']:.2e})"
+                    for k, v in it8.items() if not k.startswith("_"))
+        + f"; trace work {it8['trace_segments']['work']} [{gpu}]")
+
+    # ---- phase 9: the scan engine on the card -----------------------------
+    kernels.reset_launches()
+    s9 = {}
+    f9 = trender.render_film(sd, ds.camera, cfg3.replace(engine="scan"), stats=s9)
+    torch.cuda.synchronize()
+    launches9 = dict(kernels.LAUNCHES)
+    if launches9["trace_segments"] < 1 or launches9["mega_render"]:
+        raise AssertionError(f"scan engine launches {launches9}")
+    err9, outside9, mean9 = compare_images(f9.accum.reshape(-1, 3).T,
+                                           f7p.accum.reshape(-1, 3).T, "phase 9")
+    if s9["rays"] != s7p["rays"]:
+        raise AssertionError(f"phase 9: useful rays {s9['rays']} vs {s7p['rays']}")
+    log(f"phase 9 scan on the card: jade 96x96 4spp depth 6, trace_segments launches "
+        f"{launches9['trace_segments']}; vs the plain pool film: max abs err {err9:.3e}, "
+        f"{outside9} outside, mean rel diff {mean9:.3e}; useful rays equal [{gpu}]")
+
+    lib_note = "no single PyTorch call computes this function"
+    main_shape = (f"jade 20k, 1024x1024 16 spp depth 16, {it8['_state']['lanes']} lanes "
+                  f"after {it8['_state']['iterations']} iterations")
+    src = "jaderaytracerendering_tpu_torch/csrc/"
+    kernels_out = [{
+        "name": "mega_render", "route": "cuda", "source": src + "mega.cu",
         "replaces": "jaderaytracerendering_tpu/ops/pallas/mega.py:782",
-        "launches": launches["mega_render"],
-        "max_abs_err": err3,
-        "ms": ms3,
-        "plain_ms": plain_ms3,
-        "shape": "jade 20k, 96x96, 4 spp, depth 6 (ms, plain_ms, max_abs_err)",
-        "main_path_ms": main_ms,
-        "main_path_max_abs_err": err4,
+        "launches": launches["mega_render"], "max_abs_err": err3, "ms": ms3,
+        "plain_ms": plain_ms3, "bound_ms": bound3[0], "bound_by": bound3[1],
+        "library_ms": None, "library_note": lib_note,
+        "shape": "jade 20k, 96x96, 4 spp, depth 6 (ms, plain_ms, max_abs_err, bound_ms)",
+        "main_path_ms": main_ms, "main_path_max_abs_err": err4,
     }]
-    print(json.dumps({"kernels": kernels}))
+    for name, replaces in (
+            ("spawn_primary", "ops/pallas/spawn_front.py:63"),
+            ("trace_segments", "ops/pallas/cluster_sweep_fused.py:49"),
+            ("front_bounce", "ops/pallas/bounce_front.py:77"),
+            ("resolve_bounce", "ops/pallas/bounce_resolve.py:47")):
+        v = it8[name]
+        kernels_out.append({
+            "name": name, "route": "cuda", "source": src + "pool.cu",
+            "replaces": "jaderaytracerendering_tpu/" + replaces,
+            "launches": launches8[name], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None, "library_note": lib_note, "shape": main_shape})
+    print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,375 @@
+// The pool engine's wavefront kernels for Hopper (sm_90a): spawn, trace,
+// front and resolve over a persistent pool of M path lanes.
+//
+// Replace the JAX package's Pallas TPU kernels of integrator/pool.py's
+// all-Pallas bounce pipeline:
+//   spawn_primary  <- ops/pallas/spawn_front.py::spawn_primary -> _kernel
+//   trace_segments <- ops/pallas/cluster_sweep_fused.py _feats_jnp and
+//                     _stacked_jnp -> _fused_kernel (and the other sweep
+//                     kernels, which compute the same function:
+//                     cluster_sweep_stream, cluster_sweep, cluster_sweep_mxu)
+//   front_bounce   <- ops/pallas/bounce_front.py::front_bounce -> _kernel
+//   resolve_bounce <- ops/pallas/bounce_resolve.py::resolve_bounce2 -> _kernel
+// Each computes what its plain PyTorch version computes (ops/spawn_front.py,
+// ops/trace.py, ops/bounce_front.py, ops/bounce_resolve.py), through the
+// device functions of path.cuh that the megakernel uses too, so a pool
+// render and a megakernel render trace the same paths sample for sample.
+//
+// Lane state (ops/lanes.py), SoA so that neighbouring threads read
+// neighbouring words: fs f32 [15, M] (src 0-2, out_dir 3-5, throughput T
+// 6-8, radiance L 9-11, primary emission le0 12-14) and is i32 [6, M]
+// (active, hit_idx, bounce, slot, pix, smp). cnt i64 [4]: next queue
+// sample, finished samples, useful rays. Segments: o, d f32 [S, 3, M],
+// excl i32 [S, M], S = E lights + HDR + continuation.
+//
+// What bounds them on this card: trace_segments (and the primary trace
+// inside spawn_primary) by divergent BVH traversal, as the megakernel,
+// plus one memory round trip of the segments per bounce; front_bounce and
+// resolve_bounce by their bytes (state, segments and trace rows, tens of
+// bytes per lane) and by the scattered scene-table loads. The first design
+// is one thread per lane (per lane and segment for the trace), no
+// per-material queues: resolve_bounce recomputes the front's shading
+// values from the lane state (a pure function of the counter RNG and the
+// scene) instead of reading a stored front record, which saves ~150 bytes
+// of traffic per lane for ~100 flops. The TPU's cluster slabs, bf16x3
+// coefficients, resident/stream split, 128-lane row packing, [16, M]
+// feature rows and 19-light mask cap have no counterpart. Film adds are
+// float atomics (the order of sums within a pixel varies between runs);
+// the counters are integer atomics, one per block.
+
+#include "path.cuh"
+
+struct PoolArgs {
+  float* fs;        // [15, M]
+  int* is;          // [6, M]
+  float* film;      // [npix, 3] radiance sums
+  long long* cnt;   // [4] next sample, finished samples, useful rays, spare
+  long long total;  // samples in the queue
+  int m;            // lanes
+  int npix;
+};
+
+namespace {
+
+enum { F_SRC = 0, F_DIR = 3, F_T = 6, F_L = 9, F_LE0 = 12 };
+enum { I_ACTIVE = 0, I_HIT = 1, I_BOUNCE = 2, I_SLOT = 3, I_PIX = 4, I_SMP = 5 };
+
+__device__ __forceinline__ V row3(const float* a, int row, int m, int i) {
+  return {a[row * m + i], a[(row + 1) * m + i], a[(row + 2) * m + i]};
+}
+__device__ __forceinline__ void put3(float* a, int row, int m, int i, V v) {
+  a[row * m + i] = v.x;
+  a[(row + 1) * m + i] = v.y;
+  a[(row + 2) * m + i] = v.z;
+}
+__device__ __forceinline__ void film_add(float* film, int slot, V v) {
+  atomicAdd(film + 3 * slot, v.x);
+  atomicAdd(film + 3 * slot + 1, v.y);
+  atomicAdd(film + 3 * slot + 2, v.z);
+}
+__device__ __forceinline__ void count_add(long long* c, int n) {
+  if (n) atomicAdd((unsigned long long*)c, (unsigned long long)n);
+}
+
+// Inclusive prefix sum of v over the block, in thread order. Every thread
+// of the block calls it (blockDim a multiple of 32, at most 1024).
+__device__ int block_inclusive_scan(int v, int* warp_sums) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int nw = blockDim.x >> 5;
+    int w = lane < nw ? warp_sums[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nw) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int res = x + (warp > 0 ? warp_sums[warp - 1] : 0);
+  __syncthreads();  // warp_sums is free again for the next call
+  return res;
+}
+
+constexpr int SPAWN_THREADS = 256;
+constexpr int SCAN_THREADS = 1024;
+constexpr int LANE_THREADS = 128;
+
+// ---- spawn: queue assignment in lane order + camera ray + primary trace --
+
+// Fresh lanes (active == 0) per block.
+__global__ void __launch_bounds__(SPAWN_THREADS)
+spawn_count_kernel(const int* __restrict__ active, int m, int* __restrict__ block_cnt) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int n = __syncthreads_count(i < m && active[i] == 0);
+  if (threadIdx.x == 0) block_cnt[blockIdx.x] = n;
+}
+
+// One block: block counts -> exclusive block offsets (in place), then the
+// queue cut: consumed = min(fresh, total - next); next += consumed. The
+// old next is left in *base for the assignment pass.
+__global__ void __launch_bounds__(SCAN_THREADS)
+spawn_offsets_kernel(int* __restrict__ block_cnt, int nb, long long* __restrict__ cnt,
+                     long long total, long long* __restrict__ base) {
+  __shared__ int warp_sums[32];
+  __shared__ long long carry;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int start = 0; start < nb; start += blockDim.x) {
+    int j = start + threadIdx.x;
+    int v = j < nb ? block_cnt[j] : 0;
+    int incl = block_inclusive_scan(v, warp_sums);
+    if (j < nb) block_cnt[j] = (int)(carry + incl - v);
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) carry += incl;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    long long next = cnt[0];
+    long long rem = total - next;
+    *base = next;
+    cnt[0] = next + (carry < rem ? carry : rem);
+  }
+}
+
+// Fresh lanes take queue samples in lane order (the plain cumsum's order),
+// trace their primary rays and either start a path (hit) or add the sky to
+// the film and stay fresh (miss). aux (optional, [8, M]): d_u 0-2, t 3,
+// sky 4-6, got 7 of each lane that took a sample.
+__global__ void __launch_bounds__(SPAWN_THREADS)
+spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const int* __restrict__ block_off,
+                     const long long* __restrict__ base, float* __restrict__ aux) {
+  __shared__ int warp_sums[32];
+  int m = q.m;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool fresh = i < m && q.is[I_ACTIVE * m + i] == 0;
+  int k = block_off[blockIdx.x] + block_inclusive_scan(fresh ? 1 : 0, warp_sums);
+  long long idx = *base + (long long)k - 1;
+  bool got = fresh && idx < q.total;
+  bool hit = false;
+  if (got) {
+    int slot = (int)(idx % q.npix);
+    uint32_t pix = (uint32_t)slot;
+    uint32_t smp = (uint32_t)(idx / q.npix) + r.sample_base;
+    q.is[I_SLOT * m + i] = slot;
+    q.is[I_PIX * m + i] = (int)pix;
+    q.is[I_SMP * m + i] = (int)smp;
+    V d = camera_dir(r, pix, sample_hash(pix, smp) + r.seed * K_SEED);
+    V o = {r.eye[0], r.eye[1], r.eye[2]};
+    V d_u = unit_eps(d);
+    float t;
+    int tri;
+    hit = trace(s, o, d_u, -1, false, t, tri);
+    V sky = {0.0f, 0.0f, 0.0f};
+    if (!hit || aux) sky = env_sample(s, d_u, r.hdr_clamp);
+    if (hit) {
+      const V one = {1.0f, 1.0f, 1.0f}, zero = {0.0f, 0.0f, 0.0f};
+      q.is[I_ACTIVE * m + i] = 1;
+      q.is[I_HIT * m + i] = tri;
+      q.is[I_BOUNCE * m + i] = 0;
+      put3(q.fs, F_SRC, m, i, o + d_u * t);
+      put3(q.fs, F_DIR, m, i, -d_u);
+      put3(q.fs, F_T, m, i, one);
+      put3(q.fs, F_L, m, i, zero);
+      put3(q.fs, F_LE0, m, i, load3(s.mat_emissive, s.tri_obj[tri]));
+    } else {
+      film_add(q.film, slot, sky);
+    }
+    if (aux) {
+      put3(aux, 0, m, i, d_u);
+      aux[3 * m + i] = t;
+      put3(aux, 4, m, i, sky);
+      aux[7 * m + i] = 1.0f;
+    }
+  } else if (aux && i < m) {
+    for (int row = 0; row < 8; ++row) aux[row * m + i] = 0.0f;
+  }
+  int n_got = __syncthreads_count(got);
+  int n_miss = __syncthreads_count(got && !hit);
+  if (threadIdx.x == 0) {
+    count_add(q.cnt + 2, n_got);   // a primary ray per sample taken
+    count_add(q.cnt + 1, n_miss);  // a miss finishes its sample
+  }
+}
+
+// The lane's path and bounce hash (the pool's per-lane bounce counter).
+__device__ __forceinline__ Path lane_path(const PoolArgs& q, int i, uint32_t seed,
+                                          uint32_t& hb) {
+  int m = q.m;
+  Path p = {row3(q.fs, F_SRC, m, i), row3(q.fs, F_DIR, m, i), q.is[I_HIT * m + i]};
+  hb = bounce_hash(sample_hash((uint32_t)q.is[I_PIX * m + i], (uint32_t)q.is[I_SMP * m + i]),
+                   seed, q.is[I_BOUNCE * m + i]);
+  return p;
+}
+
+// ---- front: one bounce up to its traces, as stacked segment rays ---------
+__global__ void __launch_bounds__(LANE_THREADS)
+front_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, float* __restrict__ seg_o,
+                    float* __restrict__ seg_d, int* __restrict__ seg_x) {
+  int m = q.m;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const V zero = {0.0f, 0.0f, 0.0f};
+  int e_cnt = s.n_emit;
+  bool nee = false, alive = false;
+  int excl = 0;
+  Front f;
+  uint32_t hb = 0;
+  if (q.is[I_ACTIVE * m + i] != 0) {
+    Path p = lane_path(q, i, r.seed, hb);
+    bounce_front_dev(s, r, hb, p, f);
+    if (!f.emit_break) bounce_dirs_dev(s, hb, p, f);
+    alive = !f.emit_break;
+    nee = f.needs_nee;
+    excl = f.nee_excl;
+  }
+  // masked segments get zero rays, which every walk treats as a miss
+  for (int l = 0; l < e_cnt; ++l) {
+    V ldir = zero;
+    if (nee) light_dir_dev(s, hb, f, l, ldir);
+    put3(seg_o, 3 * l, m, i, nee ? f.nee_src : zero);
+    put3(seg_d, 3 * l, m, i, ldir);
+    seg_x[l * m + i] = excl;
+  }
+  put3(seg_o, 3 * e_cnt, m, i, nee ? f.nee_src : zero);
+  put3(seg_d, 3 * e_cnt, m, i, nee ? f.hdir : zero);
+  seg_x[e_cnt * m + i] = excl;
+  put3(seg_o, 3 * (e_cnt + 1), m, i, alive ? f.nee_src : zero);
+  put3(seg_d, 3 * (e_cnt + 1), m, i, alive ? f.cdir : zero);
+  seg_x[(e_cnt + 1) * m + i] = excl;
+}
+
+// ---- trace: nearest hit per (segment, lane); one segment any-hit --------
+__global__ void __launch_bounds__(LANE_THREADS)
+trace_segments_kernel(SceneArgs s, const float* __restrict__ o, const float* __restrict__ d,
+                      const int* __restrict__ x, int n_seg, int m, int anyhit_seg,
+                      float* __restrict__ bt, int* __restrict__ bi) {
+  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (long long)n_seg * m) return;
+  int seg = (int)(g / m);
+  int i = (int)(g - (long long)seg * m);
+  float t;
+  int idx;
+  trace(s, row3(o, 3 * seg, m, i), row3(d, 3 * seg, m, i), x[g], seg == anyhit_seg, t, idx);
+  bt[g] = t;
+  bi[g] = idx;
+}
+
+// ---- resolve: the bounce after its traces + the pool's accumulation -----
+__global__ void __launch_bounds__(LANE_THREADS)
+resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __restrict__ bt,
+                      const int* __restrict__ bi) {
+  int m = q.m;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool active = i < m && q.is[I_ACTIVE * m + i] != 0;
+  bool finished = false;
+  if (active) {
+    int e_cnt = s.n_emit;
+    uint32_t hb;
+    Path p = lane_path(q, i, r.seed, hb);
+    Front f;
+    bounce_front_dev(s, r, hb, p, f);
+    if (!f.emit_break) bounce_dirs_dev(s, hb, p, f);
+    // visibility from the raw trace rows (bounce_resolve2's contract)
+    V l_dir = {0.0f, 0.0f, 0.0f};
+    if (f.needs_nee) {
+      for (int l = 0; l < e_cnt; ++l) {
+        V ldir;
+        bool gate = light_dir_dev(s, hb, f, l, ldir);
+        if (gate && bt[l * m + i] < INF_T && bi[l * m + i] == s.emit_idx[l])
+          l_dir = l_dir + light_contrib_dev(s, f, l, ldir);
+      }
+    }
+    bool h_hit = bt[e_cnt * m + i] < INF_T;
+    float c_t = bt[(e_cnt + 1) * m + i];
+    bool c_hit = c_t < INF_T;
+    int c_idx = c_hit ? bi[(e_cnt + 1) * m + i] : 0;
+    V dir_b, rate_b;
+    bool accept = resolve_tail_dev(s, r, hb, f, l_dir, h_hit, c_hit, c_t, c_idx, p, dir_b,
+                                   rate_b);
+    // forward composite with the reference's depth-cap seed (pool.py)
+    V T = row3(q.fs, F_T, m, i);
+    V L = row3(q.fs, F_L, m, i);
+    L = L + T * dir_b;
+    T = T * rate_b;
+    int b2 = q.is[I_BOUNCE * m + i] + 1;
+    bool capped = accept && b2 >= r.max_depth;
+    if (capped) L = L + T * dir_b;
+    finished = !accept || capped;
+    if (finished) {
+      film_add(q.film, q.is[I_SLOT * m + i], L + row3(q.fs, F_LE0, m, i));
+      q.is[I_ACTIVE * m + i] = 0;
+    } else {
+      put3(q.fs, F_SRC, m, i, p.src);
+      put3(q.fs, F_DIR, m, i, p.out_dir);
+      put3(q.fs, F_T, m, i, T);
+      put3(q.fs, F_L, m, i, L);
+      q.is[I_HIT * m + i] = p.tri;
+      q.is[I_BOUNCE * m + i] = b2;
+    }
+  }
+  int n_active = __syncthreads_count(active);
+  int n_fin = __syncthreads_count(finished);
+  if (threadIdx.x == 0) {
+    count_add(q.cnt + 2, n_active * (s.n_emit + 2));  // E lights + HDR + continuation
+    count_add(q.cnt + 1, n_fin);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One spawn round; block_cnt is scratch of ceil(M / 256) ints, base of one
+// int64; aux may be null.
+int spawn_primary(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, int* block_cnt,
+                  long long* base, float* aux, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int nb = (q->m + SPAWN_THREADS - 1) / SPAWN_THREADS;
+  spawn_count_kernel<<<nb, SPAWN_THREADS, 0, st>>>(q->is, q->m, block_cnt);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  spawn_offsets_kernel<<<1, SCAN_THREADS, 0, st>>>(block_cnt, nb, q->cnt, q->total, base);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  spawn_primary_kernel<<<nb, SPAWN_THREADS, 0, st>>>(*s, *r, *q, block_cnt, base, aux);
+  return (int)cudaGetLastError();
+}
+
+// Segment rays of every lane's next bounce: seg_o, seg_d [E+2, 3, M],
+// seg_x [E+2, M].
+int front_bounce(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, float* seg_o,
+                 float* seg_d, int* seg_x, void* stream) {
+  int blocks = (q->m + LANE_THREADS - 1) / LANE_THREADS;
+  front_bounce_kernel<<<blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(*s, *r, *q, seg_o,
+                                                                         seg_d, seg_x);
+  return (int)cudaGetLastError();
+}
+
+// Nearest hit (t, id) of n_seg x m rays; t = 2147483647 on a miss. Segment
+// anyhit_seg (-1: none) stops at its first hit.
+int trace_segments(const SceneArgs* s, const float* o, const float* d, const int* x, int n_seg,
+                   int m, int anyhit_seg, float* bt, int* bi, void* stream) {
+  long long n = (long long)n_seg * m;
+  long long blocks = (n + LANE_THREADS - 1) / LANE_THREADS;
+  if (blocks == 0) return 0;
+  trace_segments_kernel<<<(unsigned)blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(
+      *s, o, d, x, n_seg, m, anyhit_seg, bt, bi);
+  return (int)cudaGetLastError();
+}
+
+// Resolve every active lane's bounce from the trace rows bt, bi [E+2, M].
+int resolve_bounce(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, const float* bt,
+                   const int* bi, void* stream) {
+  int blocks = (q->m + LANE_THREADS - 1) / LANE_THREADS;
+  resolve_bounce_kernel<<<blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(*s, *r, *q, bt, bi);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

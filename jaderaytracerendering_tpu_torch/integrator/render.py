@@ -1,10 +1,12 @@
 """Render orchestration: (pixel, sample) lanes -> Film.
 
 ``render_film`` routes by engine: ``mega`` launches the CUDA megakernel
-(integrator/mega.py; on CPU tensors its wrapper runs the plain version),
-``scan`` runs the plain torch integrator (integrator/wavefront.py) over
-fixed-size chunks on whatever device holds the scene. The JAX package's
-``pool`` engine and preview integrator are not ported yet.
+(integrator/mega.py), ``pool`` runs the wavefront pool engine
+(integrator/pool.py: spawn, trace, front and resolve kernels), ``scan``
+runs the torch integrator (integrator/wavefront.py) over fixed-size
+chunks, its ray queries through the trace kernel. On CPU tensors every
+kernel wrapper runs its plain version. The JAX package's preview
+integrator is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ SCAN_LANES = 1 << 16
 
 
 def render_batch(sd, eye, rot, pixel_ids: torch.Tensor, sample_base: int,
-                 cfg: RenderConfig, sppb: int):
+                 cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes):
     """Radiance sums over ``sppb`` samples per pixel id (samples
-    ``sample_base ..``, ascending) -> ([P, 3] f32, useful rays [P] f32)."""
+    ``sample_base ..``, ascending) -> ([P, 3] f32, useful rays [P] f32).
+    ``query`` is the ray query (``wavefront.nearest_planes_plain`` walks
+    the plain BVH on any device)."""
     p = pixel_ids.shape[0]
     pid = pixel_ids.repeat(sppb)
     sid = (torch.arange(sppb, dtype=torch.int64, device=pixel_ids.device)
@@ -34,7 +38,7 @@ def render_batch(sd, eye, rot, pixel_ids: torch.Tensor, sample_base: int,
     o, d = camera_mod.generate_rays_p(eye, rot, cfg.width, cfg.height, pid,
                                       sid, cfg.seed, cfg.jitter)
     rad, rays = wavefront.trace_radiance_p(o, d, pid, sid, sd, cfg,
-                                           with_stats=True)
+                                           with_stats=True, query=query)
     rad = torch.stack([rad.x, rad.y, rad.z], dim=-1).reshape(sppb, p, 3)
     rays = rays.reshape(sppb, p)
     out, n = rad[0], rays[0]
@@ -49,7 +53,8 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
                 stats: Optional[dict] = None) -> Film:
     """Accumulate cfg.spp samples into a Film on the scene's device.
 
-    ``stats``, when given, receives ``rays``: the useful rays traced."""
+    ``stats``, when given, receives ``rays``: the useful rays traced (and
+    ``iterations`` from the pool engine)."""
     if cfg.integrator != "full":
         raise NotImplementedError("the preview integrator is not ported yet")
     if film is None:
@@ -62,7 +67,12 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
             progress(cfg.spp, cfg.spp)
         return film
     if cfg.engine == "pool":
-        raise NotImplementedError("the pool engine is not ported yet")
+        from . import pool as pool_mod
+
+        film = pool_mod.render_film_pool(sd, cam, cfg, film, stats)
+        if progress:
+            progress(cfg.spp, cfg.spp)
+        return film
     if cfg.engine != "scan":
         raise ValueError(f"unknown engine {cfg.engine!r}")
 

@@ -11,6 +11,18 @@ light hit counts Le twice, pdf factors k = 2 for refractive materials,
 1/SSS_RATE and 1/(1-SSS_RATE), mirror k/(RR/pi), the unnormalized NEE
 light vector) are those of the JAX module.
 
+One bounce is split at its trace, as the JAX package's pool splits it
+into its front and resolve kernels: ``front_step`` (rows, RNG,
+``bounce_front``, the segment rays) and ``resolve_step`` (``resolve_tail``
+on the trace results). ``bounce_step`` runs both with one trace between;
+the pool engine's plain route runs them on its own lane state.
+
+Ray queries go through ``nearest_planes``: the trace kernel
+(ops/trace.py) for CUDA tensors, the plain BVH walk for CPU tensors.
+``nearest_planes_plain`` walks the plain BVH on any device; the plain
+version of the megakernel passes it as the ``query`` of
+``trace_radiance_p``.
+
 Direct refraction (DIR_REFRACT materials, the reference's internal
 march) is not ported yet: scenes with ``has_refract`` raise.
 """
@@ -22,9 +34,8 @@ import typing as _t
 import torch
 
 from ..core import rng
-from ..core.vecmath import (V3, div, vcat, vdiv, vdot, vnorm, vnormalize, vrows,
-                            vstack, vwhere)
-from ..ops import traverse
+from ..core.vecmath import V3, div, vcat, vdiv, vdot, vnorm, vnormalize, vrows, vwhere
+from ..ops import trace
 from ..scene import envmap
 from . import sampling
 from .sampling import PI
@@ -55,9 +66,14 @@ def _unit_p(v: V3) -> V3:
 def nearest_planes(o: V3, d: V3, excl, sd, stack_size: int = 128):
     """Nearest hit for plane-form rays -> (hit, idx, t). ``d`` is made
     unit (zero stays zero, i.e. a miss) and the walk normalizes it
-    again, as the JAX package's ``_nearest_planes`` does."""
-    return traverse.nearest_hit_bvh(vstack(o), vstack(_unit_p(d)), excl, sd,
-                                    stack_size)
+    again, as the JAX package's ``_nearest_planes`` does. CUDA tensors
+    launch the trace kernel."""
+    return trace.nearest(trace.trace_segments, sd, o, d, excl, stack_size)
+
+
+def nearest_planes_plain(o: V3, d: V3, excl, sd, stack_size: int = 128):
+    """``nearest_planes`` through the plain BVH walk on any device."""
+    return trace.nearest(trace.trace_segments_plain, sd, o, d, excl, stack_size)
 
 
 class Surface(_t.NamedTuple):
@@ -282,11 +298,14 @@ def resolve_tail(f: Front, sd, cfg, active, l_oks, sky: V3, sky_c: V3,
     return dir_out, rate_out, new_src, accept
 
 
-def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg):
-    """One masked bounce. ``state`` = (active, ray_src V3, out_dir V3,
-    hit_idx). Returns (state, (dir_b V3, rate_b V3))."""
+def front_step(state, b, pixel_id, sample_id, sd, cfg):
+    """The bounce up to its trace: rows, RNG, ``bounce_front`` and the
+    segment rays. ``state`` = (active, ray_src V3, out_dir V3, hit_idx);
+    ``b`` is the bounce (an int, or a tensor of per-lane bounces).
+    Returns (Front, seg_o, seg_d): E + 2 segments (light i, then the HDR
+    ray, then the continuation), all excluding ``Front.nee_excl``; masked
+    lanes get zero rays, which every walk treats as a miss."""
     active, ray_src, out_dir, hit_idx = state
-    m = ray_src.x.shape[0]
     e_cnt = sd.n_emit
     tri = torch.where(active, hit_idx, 0)
     mat = gather_rows(sd, tri)
@@ -294,22 +313,23 @@ def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg):
              + [S.LIGHT_BASE + 2 * i + 1 for i in range(e_cnt)])
     us = rng.uniform_sites(pixel_id, sample_id, b + 1, sites, cfg.seed)
     f = bounce_front(active, ray_src, out_dir, tri, mat, us, sd, cfg)
-
-    # one nearest-hit batch: [M*E light] + [M hdr] + [M continuation];
-    # masked lanes get zero directions, which every walk treats as a miss
     nee_o = vwhere(f.needs_nee, f.nee_src, 0.0)
-    batch_o = vcat([nee_o] * (e_cnt + 1) + [vwhere(f.alive, f.nee_src, 0.0)])
-    batch_d = vcat([vwhere(f.needs_nee, ld, 0.0) for ld in f.ldirs]
-                   + [vwhere(f.needs_nee, f.hdir, 0.0),
-                      vwhere(f.alive, f.cdir, 0.0)])
-    batch_e = torch.cat([f.nee_excl] * (e_cnt + 2))
-    bhit, bidx, bt = nearest_planes(batch_o, batch_d, batch_e, sd,
-                                    cfg.bvh_stack_size)
-    h_hit = bhit[m * e_cnt: m * e_cnt + m]
-    c_hit = bhit[m * e_cnt + m:]
-    c_idx = bidx[m * e_cnt + m:]
-    c_t = bt[m * e_cnt + m:]
+    seg_o = [nee_o] * (e_cnt + 1) + [vwhere(f.alive, f.nee_src, 0.0)]
+    seg_d = ([vwhere(f.needs_nee, ld, 0.0) for ld in f.ldirs]
+             + [vwhere(f.needs_nee, f.hdir, 0.0), vwhere(f.alive, f.cdir, 0.0)])
+    return f, seg_o, seg_d
 
+
+def resolve_step(f: Front, state, hits, idxs, ts, sd, cfg):
+    """The bounce after its trace: per-segment hit/idx/t lists (the
+    ``front_step`` segment order; only the HDR segment's hit is read) ->
+    ((accept, ray_src, out_dir, hit_idx), (dir_b V3, rate_b V3))."""
+    active, ray_src, out_dir, hit_idx = state
+    e_cnt = sd.n_emit
+    h_hit = hits[e_cnt]
+    c_hit, c_idx, c_t = hits[e_cnt + 1], idxs[e_cnt + 1], ts[e_cnt + 1]
+
+    m = c_t.shape[0]
     cdir_u = _unit_p(f.cdir)
     hdir_u = _unit_p(f.hdir)
     env2 = envmap.sample_env(sd.env_map, vcat([hdir_u, cdir_u]), cfg.hdr_clamp)
@@ -317,8 +337,7 @@ def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg):
     sky_c = V3(env2.x[m:], env2.y[m:], env2.z[m:])
     c_obj_em = vrows(sd.mat_emissive[sd.tri_obj[torch.where(c_hit, c_idx, 0)].long()])
     # per-light visibility: exact-index test against the nearest hit
-    l_oks = [f.l_gates[i] & bhit[i * m:(i + 1) * m]
-             & (bidx[i * m:(i + 1) * m] == sd.emit_idx[i])
+    l_oks = [f.l_gates[i] & hits[i] & (idxs[i] == sd.emit_idx[i])
              for i in range(e_cnt)]
 
     dir_out, rate_out, new_src, accept = resolve_tail(
@@ -328,6 +347,20 @@ def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg):
     out_dir = vwhere(accept, -cdir_u, out_dir)
     hit_idx = torch.where(accept, c_idx.to(hit_idx.dtype), hit_idx)
     return (accept, ray_src, out_dir, hit_idx), (dir_out, rate_out)
+
+
+def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg, query=nearest_planes):
+    """One masked bounce. ``state`` = (active, ray_src V3, out_dir V3,
+    hit_idx); ``query`` is the ray query. Returns (state, (dir_b V3,
+    rate_b V3))."""
+    m = state[1].x.shape[0]
+    f, seg_o, seg_d = front_step(state, b, pixel_id, sample_id, sd, cfg)
+    # one nearest-hit batch of all segments
+    bhit, bidx, bt = query(vcat(seg_o), vcat(seg_d), torch.cat([f.nee_excl] * len(seg_o)),
+                           sd, cfg.bvh_stack_size)
+    rows = [slice(s * m, (s + 1) * m) for s in range(len(seg_o))]
+    return resolve_step(f, state, [bhit[r] for r in rows], [bidx[r] for r in rows],
+                        [bt[r] for r in rows], sd, cfg)
 
 
 def composite_p(dirs: list, rates: list) -> V3:
@@ -341,16 +374,17 @@ def composite_p(dirs: list, rates: list) -> V3:
 
 
 def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
-                     with_stats: bool = False):
+                     with_stats: bool = False, query=nearest_planes):
     """Primary rays -> radiance V3 (render_pixel body, cu:1426-1455).
 
     ``with_stats=True`` also returns each lane's count of useful rays
-    (the primary plus E + 2 per bounce the lane entered alive)."""
+    (the primary plus E + 2 per bounce the lane entered alive). ``query``
+    is the ray query of every trace."""
     check_supported(sd)
     m = origins.x.shape[0]
     d_unit = _unit_p(dirs)
     ex0 = torch.full((m,), -1, dtype=torch.int32, device=origins.x.device)
-    hit0, idx0, t0 = nearest_planes(origins, d_unit, ex0, sd, cfg.bvh_stack_size)
+    hit0, idx0, t0 = query(origins, d_unit, ex0, sd, cfg.bvh_stack_size)
     sky0 = envmap.sample_env(sd.env_map, d_unit, cfg.hdr_clamp)
     first = torch.where(hit0, idx0, 0)
     le0 = vrows(sd.mat_emissive[sd.tri_obj[first].long()])
@@ -359,7 +393,7 @@ def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
     dir_list, rate_list = [], []
     for b in range(cfg.max_depth):
         rays = rays + state[0].to(torch.float32) * float(sd.n_emit + 2)
-        state, (d_b, r_b) = bounce_step(state, b, pixel_id, sample_id, sd, cfg)
+        state, (d_b, r_b) = bounce_step(state, b, pixel_id, sample_id, sd, cfg, query)
         dir_list.append(d_b)
         rate_list.append(r_b)
     li = composite_p(dir_list, rate_list)

@@ -1,0 +1,88 @@
+"""The pool engine's lane state, shared by its kernels (csrc/pool.cu) and
+their plain versions.
+
+``M`` lanes each carry one path: ``fs`` f32 [15, M] (hit point ``src``
+rows 0-2, ``out_dir`` 3-5, throughput ``T`` 6-8, radiance ``L`` 9-11,
+primary emission ``le0`` 12-14) and ``is_`` i32 [6, M] (``active``,
+``hit_idx``, ``bounce``, ``slot``, ``pix``, ``smp``). Beside them: the
+film of this queue ``film`` f32 [npix, 3], and ``cnt`` i64 [4] (next
+queue sample, finished samples, useful rays, unused). Samples are queued
+as ``index = sample * npix + pixel`` for ``total`` indices; sample ids
+start at ``sample_base``. The kernels and the plain versions update the
+state in place.
+
+The JAX package packs the same carry into five TPU buffers with [16, M]
+triangle and material rows (integrator/pool.py); here the rows are
+gathered where they are needed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from . import kernels
+
+F_SRC, F_DIR, F_T, F_L, F_LE0 = 0, 3, 6, 9, 12
+I_ACTIVE, I_HIT, I_BOUNCE, I_SLOT, I_PIX, I_SMP = range(6)
+C_NEXT, C_DONE, C_RAYS = range(3)
+
+
+@dataclasses.dataclass
+class PoolState:
+    sd: object
+    cfg: object
+    eye: torch.Tensor        # [3]
+    rot: torch.Tensor        # [4, 4]
+    npix: int
+    total: int               # queued samples (< 2^31)
+    sample_base: int
+    fs: torch.Tensor
+    is_: torch.Tensor
+    film: torch.Tensor
+    cnt: torch.Tensor
+    _args: tuple | None = None
+
+    @staticmethod
+    def create(sd, cfg, eye, rot, m: int, total: int, sample_base: int) -> "PoolState":
+        dev = sd.device
+        npix = cfg.width * cfg.height
+        fs = torch.zeros((15, m), dtype=torch.float32, device=dev)
+        fs[F_T:F_T + 3] = 1.0
+        return PoolState(
+            sd, cfg, eye, rot, npix, int(total), int(sample_base), fs,
+            torch.zeros((6, m), dtype=torch.int32, device=dev),
+            torch.zeros((npix, 3), dtype=torch.float32, device=dev),
+            torch.zeros((4,), dtype=torch.int64, device=dev))
+
+    @property
+    def m(self) -> int:
+        return self.fs.shape[1]
+
+    def clone(self) -> "PoolState":
+        return dataclasses.replace(self, fs=self.fs.clone(), is_=self.is_.clone(),
+                                   film=self.film.clone(), cnt=self.cnt.clone(),
+                                   _args=None)
+
+    def args(self):
+        """(SceneArgs, RenderArgs, PoolArgs) of this state for the kernels,
+        built once and checked then (the tensors are updated in place, so
+        their addresses hold)."""
+        if self._args is None:
+            dev = self.sd.device
+            m = self.m
+            kernels.check_tensor("fs", self.fs, torch.float32, (15, m), dev)
+            kernels.check_tensor("is_", self.is_, torch.int32, (6, m), dev)
+            kernels.check_tensor("film", self.film, torch.float32, (self.npix, 3), dev)
+            kernels.check_tensor("cnt", self.cnt, torch.int64, (4,), dev)
+            if not 0 < self.total < 2 ** 31:
+                raise ValueError(f"queue of {self.total} samples: want 1 .. 2^31-1")
+            s = kernels.scene_args(self.sd, int(self.cfg.bvh_stack_size))
+            r = kernels.render_args(self.eye, self.rot, self.cfg, self.sample_base, 0)
+            q = kernels.PoolArgs(self.fs.data_ptr(), self.is_.data_ptr(),
+                                 self.film.data_ptr(), self.cnt.data_ptr(),
+                                 self.total, m, self.npix)
+            self._args = (s, r, q)
+        return tuple(ctypes.byref(a) for a in self._args)

@@ -7,20 +7,40 @@ hit, and leaves tested brute-force with source-index exclusion. All rays
 step together; rays whose stack is empty drop out of the batch.
 
 Two rules make the result independent of visit order, so that this walk,
-the brute-force sweep and the CUDA kernel's walk (csrc/mega.cu
+the brute-force sweep and the CUDA kernels' walk (csrc/path.cuh
 ``bvh_nearest_hit``, which runs the same steps per thread) agree:
 on equal t the minimum triangle id wins (the sweep kernels' rule,
 ops/pallas/cluster_sweep_fused.py:26-29 of the JAX package), and a box
 is pruned only when its entry lies strictly beyond the best hit. A ray
 with a zero direction is a miss.
+
+Inside ``count_work()`` every walk counts its box tests (one per child
+of each inner node it visits) and its ray-triangle tests: the work a
+traversal kernel does on the same rays, for its roofline bound.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from ..core.vecmath import V3, vnormalize, vrows
 from .intersect import INF, ray_aabb, ray_triangle
+
+
+_WORK: list = []  # the count dicts of the open count_work() blocks
+
+
+@contextlib.contextmanager
+def count_work():
+    """Yield {"boxes": n, "tris": n}, the tests of every walk in the block."""
+    work = {"boxes": 0, "tris": 0}
+    _WORK.append(work)
+    try:
+        yield work
+    finally:
+        _WORK.pop()
 
 
 def _take(v: V3, idx) -> V3:
@@ -36,6 +56,7 @@ def nearest_hit_bvh(origins: torch.Tensor, dirs: torch.Tensor,
     """[M, 3] origins/dirs, [M] excluded triangle ids -> (hit [M] bool,
     index [M] int32 (0 on a miss), t [M] f32 (INF on a miss)). ``dirs``
     are normalized here, as the JAX walk does."""
+    work = _WORK[-1] if _WORK else None
     if sd.bvh_depth + 1 > stack_size:
         raise ValueError(f"BVH depth {sd.bvh_depth} + 1 exceeds the stack "
                          f"of {stack_size} entries")
@@ -72,6 +93,8 @@ def nearest_hit_bvh(origins: torch.Tensor, dirs: torch.Tensor,
         valid = ((n > 0)[:, None] & (ks[None, :] < n[:, None])
                  & (ids != exclude[lanes][:, None]))
         safe = torch.where(valid, ids, 0)
+        if work is not None:
+            work["tris"] += int(valid.sum())
         hit, t = ray_triangle(_col(ol), _col(dl), _take(tri[0], safe),
                               _take(tri[1], safe), _take(tri[2], safe))
         t = torch.where(valid & hit, t, INF)
@@ -87,6 +110,8 @@ def nearest_hit_bvh(origins: torch.Tensor, dirs: torch.Tensor,
         right = sd.bvh_right[top]
         l_ok = (n <= 0) & (left > 0)
         r_ok = (n <= 0) & (right > 0)
+        if work is not None:
+            work["boxes"] += int(l_ok.sum() + r_ok.sum())
         sl = torch.where(l_ok, left, 0)
         sr = torch.where(r_ok, right, 0)
         enter_l, dist_l = ray_aabb(ol, il, _take(box[0], sl), _take(box[1], sl))

@@ -6,8 +6,9 @@ load in both packages. The knobs that tuned the TPU kernels
 (``mega_gather``, ``mega_tile``, ``mega_sweep_tile``, ``mega_chunked``,
 ``mega_force_stream``, ``mega_stack_segments``, ``mega_redistribute``,
 ``mega_prologue``, ``spawn_kernel``, ``fused_tail``, ``front_kernel``,
-``rays_per_launch``) and ``traversal`` are accepted and ignored: the port
-always walks the BVH and launches one thread per pixel.
+``rays_per_launch``) are accepted and ignored. Every ``traversal`` name
+computes the same nearest hit, so the port walks the BVH for all of
+them: with the trace kernel on the card, in plain torch on the CPU.
 """
 
 from __future__ import annotations
@@ -35,12 +36,12 @@ class RenderConfig:
     tonemap: str = "aces"             # 'aces' | 'reinhard' | 'none'
     spp_batch: int = 4                # samples per scan-engine launch
     rays_per_launch: int = 1 << 14    # ignored
-    traversal: str = "sweep"          # ignored: the port walks the BVH
+    traversal: str = "sweep"          # any name: the BVH walk (trace kernel on CUDA)
     integrator: str = "full"          # 'full' (NEE) | 'preview' (not ported)
     preview_bounces: int = 2
     preview_bands: int = 1
-    engine: str = "mega"              # 'mega' (CUDA megakernel) | 'scan'
-    #                                   (plain torch) | 'pool' (not ported)
+    engine: str = "mega"              # 'mega' (CUDA megakernel) | 'pool'
+    #                                   (wavefront kernels) | 'scan' (torch)
     mega_spp_batch: int = 64          # megakernel: max samples per launch
     mega_gather: str = "auto"         # ignored (TPU)
     mega_redistribute: bool = True    # ignored (TPU)
@@ -50,7 +51,7 @@ class RenderConfig:
     mega_tile: int = 512              # ignored (TPU)
     mega_sweep_tile: int = -1         # ignored (TPU)
     mega_force_stream: bool = False   # ignored (TPU)
-    spawn_rounds: int = 1             # pool engine (not ported)
+    spawn_rounds: int = 1             # pool engine: spawn rounds per iteration
     spawn_kernel: bool = True         # ignored (TPU)
     fused_tail: bool = True           # ignored (TPU)
     front_kernel: bool = True         # ignored (TPU)

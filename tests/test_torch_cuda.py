@@ -2,20 +2,27 @@
 versions on the same inputs. Marked ``cuda``; each test skips (with the
 reason) where there is no CUDA device or no nvcc. On a GPU machine:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 Tolerances: BVH ids exact and t within 1e-6 relative; radiance sums per
-pixel atol = 1e-4 * max, rtol = 1e-3 (the kernel is built with
---fmad=false and matches the plain version to a few ulps)."""
+pixel atol = 1e-4 * max, rtol = 1e-3 (the kernels are built with
+--fmad=false and match the plain versions to a few ulps; the pool's film
+adds are float atomics, so its sums within a pixel change order); lane
+integers and counters of one pool step exact, its floats within 1e-5 of
+their max."""
 
 import numpy as np
 import pytest
 import torch
 
 from jaderaytracerendering_tpu_torch.core import camera as camera_mod
+from jaderaytracerendering_tpu_torch.integrator import pool as tpool
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo
-from jaderaytracerendering_tpu_torch.ops import mega as megak, traverse
+from jaderaytracerendering_tpu_torch.ops import (bounce_front, bounce_resolve, kernels,
+                                                 mega as megak, spawn_front, trace)
+from jaderaytracerendering_tpu_torch.ops.lanes import (C_RAYS, F_DIR, F_L, F_LE0, F_SRC, F_T,
+                                                       PoolState)
 from jaderaytracerendering_tpu_torch.scene.scene import assemble
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig
 
@@ -27,7 +34,7 @@ def jade_cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     try:
-        megak.build.find_nvcc()
+        kernels.build.find_nvcc()
     except RuntimeError as e:
         pytest.skip(str(e))
     ds = demo.jade_scene(n_buddha_tris=2000, env_shape=(32, 64))
@@ -35,26 +42,131 @@ def jade_cuda():
     return ds, assemble(ds.objects, ds.env_map, device="cuda")
 
 
+def _rays(sd, n_seg, n, seed):
+    g = np.random.default_rng(seed)
+    o = g.uniform(-1.5, 1.5, (n_seg, 3, n)).astype(np.float32)
+    d = (g.uniform(-0.6, 0.6, (n_seg, 3, n)).astype(np.float32) - o)
+    ex = g.integers(-1, sd.n_triangles, (n_seg, n)).astype(np.int32)
+    return (torch.tensor(a, device="cuda") for a in (o, d, ex))
+
+
 def test_bvh_nearest_kernel_matches_plain(jade_cuda):
+    """The BVH walk alone: trace_segments with one segment."""
     _, sd = jade_cuda
-    g = np.random.default_rng(0)
-    o = g.uniform(-1.5, 1.5, (8192, 3)).astype(np.float32)
-    d = (g.uniform(-0.6, 0.6, (8192, 3)).astype(np.float32) - o)
-    ex = g.integers(-1, sd.n_triangles, 8192).astype(np.int32)
-    o, d, ex = (torch.tensor(a, device="cuda") for a in (o, d, ex))
-    hk, ik, tk = megak.bvh_nearest(sd, o, d, ex)
-    hp, ip, tp = traverse.nearest_hit_bvh(o, d, ex, sd)
-    assert torch.equal(hk, hp) and torch.equal(ik, ip)
+    o, d, ex = _rays(sd, 1, 8192, 0)
+    tk, ik = trace.trace_segments(sd, o, d, ex)
+    tp, ip = trace.trace_segments_plain(sd, o, d, ex)
+    assert torch.equal(ik, ip)
     torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0)
+
+
+def test_trace_segments_kernel_matches_plain(jade_cuda):
+    _, sd = jade_cuda
+    o, d, ex = _rays(sd, 4, 4096, 1)
+    before = kernels.LAUNCHES["trace_segments"]
+    tk, ik = trace.trace_segments(sd, o, d, ex, anyhit_seg=2)
+    assert kernels.LAUNCHES["trace_segments"] == before + 1
+    tp, ip = trace.trace_segments_plain(sd, o, d, ex, anyhit_seg=2)
+    assert torch.equal(tk < kernels.INF, tp < kernels.INF)
+    near = [0, 1, 3]  # segment 2 is any-hit: its hit flag only
+    assert torch.equal(ik[near], ip[near])
+    torch.testing.assert_close(tk[near], tp[near], rtol=1e-6, atol=0)
+
+
+@pytest.fixture(scope="module")
+def pool_state(jade_cuda):
+    """A pool state on the card after three iterations (live paths,
+    fresh lanes and a partly drained queue)."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    st = PoolState.create(sd, cfg, eye, rot, 1024, 32 * 32 * 4, 0)
+    tpool.run_pool(st, max_iters=3)
+    return st
+
+
+def _same_state(k, p):
+    """Lane ints and counters equal; each 3-row group of the lane floats
+    (src, dir, T, L, le0) within 1e-5 of its own max; the film per pixel."""
+    assert torch.equal(k.is_, p.is_) and torch.equal(k.cnt, p.cnt)
+    for r in (F_SRC, F_DIR, F_T, F_L, F_LE0):
+        a, b = k.fs[r:r + 3], p.fs[r:r + 3]
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(float(b.abs().max()), 1e-30))
+    torch.testing.assert_close(k.film, p.film, rtol=1e-5,
+                               atol=1e-5 * max(float(p.film.abs().max()), 1e-30))
+
+
+def test_front_bounce_kernel_matches_plain(pool_state):
+    o, d, x = bounce_front.front_bounce(pool_state)
+    op, dp, xp = bounce_front.front_bounce_plain(pool_state)
+    assert torch.equal(x, xp)
+    torch.testing.assert_close(o, op, rtol=0, atol=1e-6)
+    torch.testing.assert_close(d, dp, rtol=0, atol=1e-6)
+
+
+def test_resolve_bounce_kernel_matches_plain(pool_state):
+    o, d, x = bounce_front.front_bounce(pool_state)
+    bt, bi = trace.trace_segments(pool_state.sd, o, d, x, pool_state.sd.n_emit)
+    k, p = pool_state.clone(), pool_state.clone()
+    bounce_resolve.resolve_bounce(k, bt, bi)
+    bounce_resolve.resolve_bounce_plain(p, bt, bi)
+    _same_state(k, p)
+
+
+def test_spawn_primary_kernel_matches_plain(pool_state):
+    k, p = pool_state.clone(), pool_state.clone()
+    k.is_[0, ::3] = 0  # free a third of the lanes
+    p.is_[0, ::3] = 0
+    aux_k = torch.empty((8, k.m), device="cuda")
+    aux_p = torch.empty_like(aux_k)
+    spawn_front.spawn_primary(k, aux_k)
+    spawn_front.spawn_primary_plain(p, aux_p)
+    assert torch.equal(aux_k[7], aux_p[7]) and bool((aux_k[7] != 0).any())
+    _same_state(k, p)
+    got = aux_p[7] != 0
+    torch.testing.assert_close(aux_k[:3, got], aux_p[:3, got], rtol=0, atol=1e-6)
+
+
+def test_render_film_pool_on_cuda_uses_the_kernels(jade_cuda):
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=32, height=32, spp=3, max_depth=5)
+    kernels.reset_launches()
+    s_k, s_p = {}, {}
+    k = tpool.render_film_pool(sd, ds.camera, cfg, stats=s_k, pool_m=700)
+    assert min(kernels.LAUNCHES[n] for n in ("spawn_primary", "trace_segments",
+                                              "front_bounce", "resolve_bounce")) > 0
+    assert kernels.LAUNCHES["mega_render"] == 0
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    p = PoolState.create(sd, cfg, eye, rot, 700, 32 * 32 * 3, 0)
+    iters = tpool.run_pool(p, tpool.PLAIN)
+    assert s_k == {"rays": float(p.cnt[C_RAYS]), "iterations": iters} and k.count == 3
+    plain = p.film.reshape(k.accum.shape)
+    torch.testing.assert_close(k.accum, plain, rtol=1e-3,
+                               atol=1e-4 * float(plain.abs().max()))
+
+
+def test_scan_engine_on_cuda_uses_the_trace_kernel(jade_cuda):
+    """The scan engine's ray queries go through the trace kernel on the
+    card (before the pool port they ran the plain torch walk there)."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=4, engine="scan")
+    kernels.reset_launches()
+    s_k, s_m = {}, {}
+    film = trender.render_film(sd, ds.camera, cfg, stats=s_k)
+    assert kernels.LAUNCHES["trace_segments"] > 0
+    mega = trender.render_film(sd, ds.camera, cfg.replace(engine="mega"), stats=s_m)
+    assert s_k["rays"] == s_m["rays"]
+    torch.testing.assert_close(film.accum, mega.accum, rtol=1e-3,
+                               atol=1e-4 * float(mega.accum.abs().max()))
 
 
 def test_mega_render_kernel_matches_plain(jade_cuda):
     ds, sd = jade_cuda
     cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5)
     eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
-    before = megak.LAUNCHES["mega_render"]
+    before = kernels.LAUNCHES["mega_render"]
     k = megak.mega_render(sd, eye, rot, cfg, 3, cfg.spp)
-    assert megak.LAUNCHES["mega_render"] == before + 1
+    assert kernels.LAUNCHES["mega_render"] == before + 1
     p = megak.mega_render_plain(sd, eye, rot, cfg, 3, cfg.spp)
     torch.cuda.synchronize()
     torch.testing.assert_close(k[:3], p[:3], rtol=1e-3,
@@ -64,10 +176,10 @@ def test_mega_render_kernel_matches_plain(jade_cuda):
 
 def test_render_film_mega_on_cuda_uses_the_kernel(jade_cuda):
     ds, sd = jade_cuda
-    megak.reset_launches()
+    kernels.reset_launches()
     stats = {}
     film = trender.render_film(sd, ds.camera,
                                RenderConfig(width=16, height=16, spp=3,
                                             mega_spp_batch=2), stats=stats)
-    assert megak.LAUNCHES["mega_render"] == 2 and film.count == 3
+    assert kernels.LAUNCHES["mega_render"] == 2 and film.count == 3
     assert bool(torch.isfinite(film.accum).all()) and stats["rays"] > 0

@@ -103,15 +103,17 @@ def test_refract_scene_raises():
             ds.objects[0].material, refract_mode=material.DIR_REFRACT))
     st = tscene.assemble(ds.objects, ds.env_map)
     assert st.has_refract
-    for engine in ("scan", "mega"):
+    for engine in ("scan", "mega", "pool"):
         with pytest.raises(NotImplementedError):
             trender.render_film(st, ds.camera, TConfig(**SIZE, engine=engine))
 
 
 def test_unported_engines_raise():
+    """The preview integrator is not ported and raises; the pool engine
+    is ported (tests/test_torch_pool.py) and renders."""
     ds = tdemo.tiny_scene()
     st = tscene.assemble(ds.objects, ds.env_map)
-    with pytest.raises(NotImplementedError):
-        trender.render_film(st, ds.camera, TConfig(**SIZE, engine="pool"))
+    film = trender.render_film(st, ds.camera, TConfig(**SIZE, engine="pool"))
+    assert film.count == SIZE["spp"] and bool(torch.isfinite(film.accum).all())
     with pytest.raises(NotImplementedError):
         trender.render_film(st, ds.camera, TConfig(**SIZE, integrator="preview"))

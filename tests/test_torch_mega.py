@@ -19,7 +19,7 @@ from jaderaytracerendering_tpu.scene.scene import assemble as jassemble
 from jaderaytracerendering_tpu.utils.config import RenderConfig as JConfig
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo as tdemo
-from jaderaytracerendering_tpu_torch.ops import mega as megak
+from jaderaytracerendering_tpu_torch.ops import kernels, mega as megak
 from jaderaytracerendering_tpu_torch.scene import scene as tscene
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig as TConfig
 
@@ -38,9 +38,9 @@ def test_mega_cornell_matches_jax_mega():
         sdj, ds.camera, JConfig(**SIZE, traversal="sweep")).mean())
     t = tdemo.cornell_scene()
     st = tscene.assemble(t.objects, t.env_map)
-    megak.reset_launches()
+    kernels.reset_launches()
     film = trender.render_film(st, t.camera, TConfig(**SIZE, engine="mega"))
-    assert megak.LAUNCHES == {"mega_render": 0, "bvh_nearest": 0}
+    assert set(kernels.LAUNCHES.values()) == {0}
     assert film.count == 4
     b = film.mean().numpy()
     scale = max(np.abs(a).max(), 1.0)
@@ -73,16 +73,18 @@ def test_wrapper_rejects_a_non_cuda_device():
 
 
 def test_kernel_struct_matches_scene_tables():
-    """The ctypes structures in ops/mega.py mirror csrc/mega.cu's
-    SceneArgs and RenderArgs field for field."""
+    """The ctypes structures in ops/kernels.py mirror csrc/path.cuh's
+    SceneArgs and RenderArgs and csrc/pool.cu's PoolArgs field for field."""
     import re
 
-    src = (megak.build.CSRC_DIR / "mega.cu").read_text()
+    src = "".join((kernels.build.CSRC_DIR / f).read_text()
+                  for f in ("path.cuh", "pool.cu"))
 
     def fields(name):
         body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
-        return [re.search(r"(\w+)(\[\d+\])?;", line).group(1)
+        return [re.search(r"(\w+)(\[\d+\])?;", line.split("//")[0]).group(1)
                 for line in body.splitlines() if ";" in line]
 
-    assert fields("SceneArgs") == [f[0] for f in megak._SceneArgs._fields_]
-    assert fields("RenderArgs") == [f[0] for f in megak._RenderArgs._fields_]
+    assert fields("SceneArgs") == [f[0] for f in kernels.SceneArgs._fields_]
+    assert fields("RenderArgs") == [f[0] for f in kernels.RenderArgs._fields_]
+    assert fields("PoolArgs") == [f[0] for f in kernels.PoolArgs._fields_]

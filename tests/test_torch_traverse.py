@@ -17,7 +17,8 @@ from jaderaytracerendering_tpu.ops import bruteforce as jbrute, traverse as jtra
 from jaderaytracerendering_tpu.scene.scene import assemble as jassemble
 from jaderaytracerendering_tpu_torch.models import demo as tdemo
 from jaderaytracerendering_tpu_torch.ops import bruteforce as tbrute
-from jaderaytracerendering_tpu_torch.ops import mega as megak
+from jaderaytracerendering_tpu_torch.core.vecmath import V3, vnormalize, vstack
+from jaderaytracerendering_tpu_torch.ops import kernels, trace
 from jaderaytracerendering_tpu_torch.ops import traverse as ttrav
 from jaderaytracerendering_tpu_torch.scene import material, scene as tscene
 from jaderaytracerendering_tpu_torch.scene.objloader import MeshData
@@ -71,13 +72,18 @@ def test_bruteforce_matches_jax(jade):
 
 
 def test_wrapper_runs_plain_walk_on_cpu(jade):
+    """The trace kernel's wrapper (one segment) runs the plain walk on CPU
+    tensors, on the eps-unit direction, and counts no launch."""
     _, st = jade
     o, d, ex = (torch.from_numpy(a) for a in _rays(200, 3, st.n_triangles))
-    megak.reset_launches()
-    a = megak.bvh_nearest(st, o, d, ex)
-    b = ttrav.nearest_hit_bvh(o, d, ex, st)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert megak.LAUNCHES["bvh_nearest"] == 0
+    kernels.reset_launches()
+    bt, bi = trace.trace_segments(st, o.T[None].contiguous(), d.T[None].contiguous(),
+                                  ex[None])
+    d_u = vstack(vnormalize(V3(d[:, 0], d[:, 1], d[:, 2]), eps=1e-30))
+    hit, idx, t = ttrav.nearest_hit_bvh(o, d_u, ex, st)
+    assert torch.equal(bi[0], idx) and torch.equal(bt[0], t)
+    assert torch.equal(bt[0] < kernels.INF, hit)
+    assert kernels.LAUNCHES["trace_segments"] == 0
 
 
 def test_ties_go_to_the_minimum_id():
