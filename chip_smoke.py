@@ -27,7 +27,27 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      pool kernel at the main path's shapes (the pool state after a few
      iterations) against its plain version, timed;
   9. scan on the card: ``render_film(engine="scan")`` at phase 7's size
-     through the trace kernel, against phase 7's plain film.
+     through the trace kernel, against phase 7's plain film;
+ 10. refraction: the jade scene with the statue made DIR_REFRACT (index
+     1.5, rate 0.9, 32 march steps) at phase 3's size: the megakernel's
+     refraction instance against its plain version, the pool's kernel
+     route against its plain route and against the megakernel's film
+     (equal useful rays), one pool iteration's kernels against their
+     plain versions; ptxas registers of both instances of each kernel;
+ 11. preview kernel vs plain: jade 96x96, 4 spp, the whole image; then a
+     4-band rotation through the kernel equal to one full frame through
+     it, bit for bit;
+ 12. postfx vs plain: phase 4's 1024^2 film in the modes aces, reinhard
+     and none (and flipped), u8 within 1, timed;
+ 13. the preview main path: the preview CLI at its defaults (jade 20k,
+     1024x1024, 1 spp a frame, 2 bounces, 4 bands) for 8 headless frames,
+     with the launch counters, the film against the plain preview on
+     random pixels, the last frame shown and the banded display of each
+     frame of a rotation (two postfx launches over two spans, two counts)
+     against the plain postfx band by band, and the written image
+     checked; kernel ms per banded frame and postfx ms; then 64 frames
+     for the steady frames per second, and 64 more under torch.profiler
+     for the device's idle share in the steady frames.
 
 Every phase prints one line; any failure raises (exit code != 0). The
 line before the last is the kernels' JSON record, the last line is
@@ -36,9 +56,13 @@ line before the last is the kernels' JSON record, the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -74,6 +98,14 @@ BOX_OPS, TRI_OPS = 25, 57
 # recomputes the front, then lights, env lookups, RR and the composite);
 # the camera ray and env lookup of a spawned sample
 FRONT_OPS, RESOLVE_OPS, SPAWN_OPS = 150, 300, 80
+# the preview kernel's shading per sample outside its walks (camera ray,
+# two bounces of sampling, fold and weights, the env lookups), and the
+# postfx kernel's per pixel (scale, ACES, power, quantize on 3 channels)
+PREVIEW_OPS, POSTFX_OPS = 150, 60
+PREVIEW_MAIN_FRAMES = 8          # phase 13: two rotations of 4 bands
+PREVIEW_STEADY_FRAMES = 64       # phase 13: frames of the steady-state runs,
+PREVIEW_WARM_FRAMES = 8          # of which the first 8 (first launches,
+                                 # pinned buffers) are left out
 
 
 def log(msg: str) -> None:
@@ -103,6 +135,25 @@ def cuda_ms_each(fns) -> float:
     return float(np.median([cuda_ms(f) for f in fns]))
 
 
+def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one launch of ``kernel`` (a substring of its name),
+    from torch.profiler over ``reps`` calls of ``fn``: the kernel alone,
+    without the host's dispatch between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    if not us or sum(us) <= 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel!r}")
+    return sum(us) / reps / 1e3
+
+
 def host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -124,6 +175,60 @@ def scene_bytes(sd, keys) -> int:
 
 WALK_TABLES = ("tri_p1", "tri_p2", "tri_p3", "bvh_left", "bvh_right", "bvh_n",
                "bvh_index", "bvh_aa", "bvh_bb")
+# the tables the preview kernel reads: the walks', the hit's normal and
+# material (emission, albedo) and the sky
+PREVIEW_TABLES = WALK_TABLES + ("tri_norm", "tri_obj", "mat_emissive", "mat_brdf", "env_map")
+
+
+def device_idle_share(prof, kernel: str, first: int) -> tuple[float, float]:
+    """From a torch.profiler trace: the window from the start of launch
+    ``first`` (counting from 0) of ``kernel`` (a substring of its name) to
+    the start of its last launch, and the share of it in which the device
+    ran nothing (no kernel, copy or fill) -> (idle share, window ms)."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    starts = sorted(e.time_range.start for e in dev if kernel in e.name)
+    if len(starts) <= first + 1:
+        raise AssertionError(f"the profiler saw {len(starts)} launches of {kernel!r}")
+    t0, t1 = starts[first], starts[-1]
+    busy, covered = 0.0, t0
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        a, b = max(lo, covered), min(hi, t1)
+        if b > a:
+            busy += b - a
+        covered = max(covered, hi)
+    return 1.0 - busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def banded_display_plain(accum, frame_idx: int, bands: int, spp: int, mode: str):
+    """The banded preview's display by the plain postfx, band by band,
+    each band with its own count: bands up to ``frame_idx % bands`` have
+    had ``frame_idx // bands + 1`` rotations of ``spp`` samples, the rest
+    one fewer."""
+    from jaderaytracerendering_tpu_torch.ops import postfx
+
+    h, w, _ = accum.shape
+    band_px = h * w // bands
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=accum.device)
+    for b in range(bands):
+        n = (frame_idx // bands + int(b <= frame_idx % bands)) * spp
+        postfx.postfx_plain(accum, n, mode, flip=True, span=(b * band_px, (b + 1) * band_px),
+                            out=out)
+    return out
+
+
+def ptxas_registers(log_text: str) -> dict:
+    """{kernel: registers} from a build's ptxas log; the instances of a
+    template on HR (direct refraction) are named <false> and <true>."""
+    regs, entry = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"([a-z_]+_kernel)(ILb([01])E)?", line)
+            entry = m.group(1) + ("" if m.group(2) is None
+                                  else ("<false>", "<true>")[int(m.group(3))])
+        elif "Used" in line and entry:
+            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+            entry = None
+    return regs
 
 
 def compare_images(kernel: torch.Tensor, plain: torch.Tensor, what: str):
@@ -224,11 +329,19 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
 
     # front: a pure function of the state
     o, d, x = bounce_front.front_bounce(st)
+    refr_k = None if st.rf is None else (st.rf.clone(), st.ri.clone())
     op, dp, xp = bounce_front.front_bounce_plain(st)
     if not torch.equal(x, xp):
         raise AssertionError(f"{what} front: {int((x != xp).sum())} exclusion ids differ")
     err = max(compare_rows(o, op, f"{what} front origins"),
               compare_rows(d, dp, f"{what} front directions"))
+    if refr_k is not None:  # the march's results, for the resolve step
+        if not torch.equal(refr_k[1], st.ri):
+            raise AssertionError(f"{what} front: march escaped/last rows differ on "
+                                 f"{int((refr_k[1] != st.ri).sum())} entries")
+        err = max([err] + [compare_rows(refr_k[0][r:r + 3], st.rf[r:r + 3],
+                                        f"{what} front march rows {r}-{r + 2}")
+                           for r in (0, 3, 6)])
     b = bound(lane_in + n_active * 40 + n_seg * m * 28 + scene_bytes(sd, ("tri_norm",)),
               n_active * FRONT_OPS)
     out["front_bounce"] = dict(
@@ -296,6 +409,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
+    from jaderaytracerendering_tpu_torch.cli import preview as cli_preview
     from jaderaytracerendering_tpu_torch.cli import render as cli_render
     from jaderaytracerendering_tpu_torch.core import camera as camera_mod
     from jaderaytracerendering_tpu_torch.core.film import Film
@@ -303,11 +417,12 @@ def main() -> None:
     from jaderaytracerendering_tpu_torch.integrator import render as trender
     from jaderaytracerendering_tpu_torch.integrator.render import render_batch
     from jaderaytracerendering_tpu_torch.models import demo
-    from jaderaytracerendering_tpu_torch.ops import (build, kernels, mega as megak,
+    from jaderaytracerendering_tpu_torch.ops import (build, kernels, mega as megak, postfx,
                                                      spawn_front, trace, traverse)
     from jaderaytracerendering_tpu_torch.ops.lanes import (C_DONE, C_NEXT, C_RAYS,
                                                            I_ACTIVE, I_PIX, I_SLOT, I_SMP,
                                                            PoolState)
+    from jaderaytracerendering_tpu_torch.scene import material
     from jaderaytracerendering_tpu_torch.scene.scene import assemble
     from jaderaytracerendering_tpu_torch.utils.config import RenderConfig
 
@@ -552,6 +667,179 @@ def main() -> None:
         f"{launches9['trace_segments']}; vs the plain pool film: max abs err {err9:.3e}, "
         f"{outside9} outside, mean rel diff {mean9:.3e}; useful rays equal [{gpu}]")
 
+    # ---- phase 10: direct refraction in the three kernel paths -------------
+    regs = ptxas_registers(build.library_path("kernels", kernels.SOURCES)
+                           .with_suffix(".log").read_text())
+    ds10 = demo.jade_scene(n_buddha_tris=MAIN_TRIS)
+    glass = dataclasses.replace(ds10.objects[0].material, refract_mode=material.DIR_REFRACT,
+                                refract_index=1.5, refract_rate=(0.9, 0.9, 0.9))
+    ds10.objects[0] = dataclasses.replace(ds10.objects[0], material=glass)
+    sd10 = assemble(ds10.objects, ds10.env_map, device=dev)
+    cfg10 = cfg3.replace(max_refract_bounces=32)
+    if not sd10.has_refract:
+        raise AssertionError("phase 10: the scene has no DIR_REFRACT material")
+    kernels.reset_launches()
+    out10k = megak.mega_render(sd10, eye, rot, cfg10, 0, cfg10.spp)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    out10p = megak.mega_render_plain(sd10, eye, rot, cfg10, 0, cfg10.spp)
+    torch.cuda.synchronize()
+    plain_ms10 = (time.perf_counter() - t_plain) * 1e3
+    ms10 = cuda_ms(lambda: megak.mega_render(sd10, eye, rot, cfg10, 0, cfg10.spp), reps=3)
+    err10, outside10, mean10 = compare_images(out10k[:3], out10p[:3], "phase 10 mega")
+    bit10 = bool(torch.equal(out10k, out10p))
+    if not torch.equal(out10k[3], out10p[3]):
+        raise AssertionError("phase 10: mega ray counts differ from the plain version")
+    s10k, s10p = {}, {}
+    f10k = pool.render_film_pool(sd10, ds.camera, cfg10, stats=s10k, pool_m=m7)
+    launches10 = dict(kernels.LAUNCHES)
+    st10 = PoolState.create(sd10, cfg10, eye, rot, m7, npix3 * cfg10.spp, 0)
+    s10p["iterations"] = pool.run_pool(st10, pool.PLAIN)
+    s10p["rays"] = float(st10.cnt[C_RAYS])
+    torch.cuda.synchronize()
+    err10p, outside10p, mean10p = compare_images(f10k.accum.reshape(-1, 3).T, st10.film.T,
+                                                 "phase 10 pool vs plain")
+    if s10k != s10p:
+        raise AssertionError(f"phase 10: pool kernel route {s10k} vs plain route {s10p}")
+    err10m, outside10m, mean10m = compare_images(f10k.accum.reshape(-1, 3).T, out10k[:3],
+                                                 "phase 10 pool vs mega")
+    mega_rays10 = float(out10k[3].sum(dtype=torch.float64))
+    if s10k["rays"] != mega_rays10:
+        raise AssertionError(f"phase 10: pool useful rays {s10k['rays']} vs mega {mega_rays10}")
+    if min(launches10[k] for k in ("mega_render", "front_bounce", "resolve_bounce")) < 1:
+        raise AssertionError(f"phase 10 launches {launches10}")
+    it10 = hold_pool_kernels(sd10, ds.camera, cfg10, m7, 3, "phase 10")
+    reg_line = ", ".join(f"{k} {v}" for k, v in sorted(regs.items())
+                         if k.endswith(("<false>", "<true>")))
+    log(f"phase 10 refraction: jade {MAIN_TRIS} with a DIR_REFRACT statue, 96x96 4spp depth "
+        f"6, 32 march steps: mega vs plain max abs err {err10:.3e} (max "
+        f"{float(out10p[:3].abs().max()):.3e}), {outside10} outside, bit-equal {bit10}, ray "
+        f"counts equal; kernel {ms10:.2f} ms, plain torch {plain_ms10:.0f} ms; pool "
+        f"({m7} lanes) vs its plain route max abs err {err10p:.3e}, {outside10p} outside, "
+        f"rays {s10k['rays']:.0f} and iterations {s10k['iterations']} equal; pool vs mega "
+        f"max abs err {err10m:.3e}, {outside10m} outside, mean rel diff {mean10m:.3e}, "
+        f"useful rays equal; one iteration: front err "
+        f"{it10['front_bounce']['max_abs_err']:.3e} (march rows included), resolve err "
+        f"{it10['resolve_bounce']['max_abs_err']:.3e}; ptxas registers: {reg_line} [{gpu}]")
+
+    # ---- phase 11: the preview kernel against its plain version -----------
+    cfg11 = cfg3.replace(integrator="preview")
+    kernels.reset_launches()
+    out11k = megak.render_preview_mega(sd, eye, rot, cfg11, 0, cfg11.spp)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    with traverse.count_work() as work11:
+        out11p = megak.render_preview_mega_plain(sd, eye, rot, cfg11, 0, cfg11.spp)
+    torch.cuda.synchronize()
+    plain_ms11 = (time.perf_counter() - t_plain) * 1e3
+    ms11 = kernel_ms(lambda: megak.render_preview_mega(sd, eye, rot, cfg11, 0, cfg11.spp),
+                     "preview_render_kernel", reps=5)
+    err11, outside11, mean11 = compare_images(out11k, out11p, "phase 11")
+    bound11 = bound(scene_bytes(sd, PREVIEW_TABLES) + 12 * npix3,
+                    work11["boxes"] * BOX_OPS + work11["tris"] * TRI_OPS
+                    + npix3 * cfg11.spp * PREVIEW_OPS)
+    pcfg = cfg11.replace(spp=1, preview_bands=4)
+    full11 = trender.render_film_preview(sd, ds.camera, pcfg.replace(preview_bands=1))
+    band11 = None
+    for f in range(4):
+        band11, _ = trender.render_film_preview(sd, ds.camera, pcfg, film=band11,
+                                                display=True, frame_idx=f)
+    if not torch.equal(band11.accum, full11.accum) or band11.count != full11.count:
+        raise AssertionError("phase 11: a 4-band rotation differs from one full frame")
+    log(f"phase 11 preview kernel vs plain: jade 96x96 4spp 2 bounces: max abs err "
+        f"{err11:.3e} (max {float(out11p.abs().max()):.3e}), {outside11}/{npix3} outside, "
+        f"mean rel diff {mean11:.3e}, bit-equal {bool(torch.equal(out11k, out11p))}; kernel "
+        f"{ms11:.3f} ms (device time), plain torch {plain_ms11:.0f} ms, bound {bound11[0]:.4f} ms "
+        f"({bound11[1]}); 4-band rotation equal to one full frame bit for bit [{gpu}]")
+
+    # ---- phase 12: postfx against its plain version ------------------------
+    film12 = mega_film.contiguous()
+    errs12 = {}
+    for mode in ("aces", "reinhard", "none"):
+        for flip in (False, True):
+            a = postfx.postfx(film12, cfg4.spp, mode, flip=flip)
+            b = postfx.postfx_plain(film12, cfg4.spp, mode, flip=flip)
+            e = int((a.int() - b.int()).abs().max())
+            if e > 1:
+                raise AssertionError(f"phase 12 postfx {mode} flip={flip}: u8 differ by {e}")
+            errs12[(mode, flip)] = e
+    out12 = torch.empty(film12.shape, dtype=torch.uint8, device=dev)
+    ms12 = kernel_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12),
+                     "postfx_kernel")
+    call_ms12 = cuda_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12),
+                        reps=20)
+    plain_ms12 = host_ms(lambda: postfx.postfx_plain(film12, cfg4.spp, "aces", flip=True))
+    npix4 = cfg4.width * cfg4.height
+    bound12 = bound(npix4 * 15, npix4 * POSTFX_OPS)
+    err12 = max(errs12.values())
+    log(f"phase 12 postfx vs plain: {cfg4.width}x{cfg4.height} film, aces/reinhard/none, "
+        f"plain and flipped: max u8 diff {err12} ({sum(errs12.values())} of 6 cases off by "
+        f"one); kernel {ms12:.4f} ms (profiler device time; {call_ms12:.4f} ms a call from "
+        f"Python), plain torch {plain_ms12:.2f} ms, bound {bound12[0]:.4f} ms "
+        f"({bound12[1]}) [{gpu}]")
+
+    # ---- phase 13: the preview main path through the CLI -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out13 = os.path.join(tmp, "preview.bmp")
+        kernels.reset_launches()
+        film13, info13 = cli_preview.main(["--frames", str(PREVIEW_MAIN_FRAMES), "--out", out13])
+        launches13 = dict(kernels.LAUNCHES)
+        size13 = os.path.getsize(out13)
+    if (launches13["render_preview_mega"] != PREVIEW_MAIN_FRAMES
+            or launches13["postfx"] < PREVIEW_MAIN_FRAMES or launches13["mega_render"]):
+        raise AssertionError(f"preview main path launches {launches13}")
+    if size13 != want or film13.count != PREVIEW_MAIN_FRAMES // 4:
+        raise AssertionError(f"preview main path: BMP {size13} bytes (want {want}), film "
+                             f"count {film13.count}")
+    pmain = RenderConfig(integrator="preview", spp=1)
+    rad13, _ = render_batch(sd, eye, rot, ids, 0, pmain, film13.count,
+                            query=wavefront.nearest_planes_plain)
+    err13, outside13, mean13 = compare_images(film13.accum.reshape(-1, 3)[ids].T, rad13.T,
+                                              "phase 13 subset")
+    band_px = npix4 // 4
+    frame_ms13 = kernel_ms(lambda: megak.render_preview_mega(sd, eye, rot, pmain, 0, 1, 0,
+                                                             band_px), "preview_render_kernel",
+                           reps=10)
+    fps13 = info13["frames"] / info13["seconds"]
+    # the frame the CLI showed last (a whole rotation: one count), and the
+    # banded display of every frame of a rotation, against the plain postfx
+    # band by band (the kernel's spans and counts held independently)
+    want13 = postfx.postfx_plain(film13.accum, film13.count, pmain.tonemap, flip=True)
+    disp_err13 = int((info13["display"].int() - want13.cpu().int()).abs().max())
+    for f in range(PREVIEW_MAIN_FRAMES):
+        disp_k = trender.display_banded(film13.accum, f, 4, pmain.spp, pmain.tonemap)
+        disp_p = banded_display_plain(film13.accum, f, 4, pmain.spp, pmain.tonemap)
+        disp_err13 = max(disp_err13, int((disp_k.int() - disp_p.int()).abs().max()))
+    if disp_err13 > 1:
+        raise AssertionError(f"phase 13: the banded display differs from the plain postfx "
+                             f"by {disp_err13} u8 steps")
+    # the steady state: 64 frames, then 64 more traced; the first frames
+    # (first launches, pinned buffers) are left out of both
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        argv = ["--frames", str(PREVIEW_STEADY_FRAMES), "--out", os.path.join(tmp, "p.bmp")]
+        _, steady13 = cli_preview.main(argv)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof13:
+            _, traced13 = cli_preview.main(argv)
+    warm = PREVIEW_WARM_FRAMES
+    fps_steady13, fps_traced13 = ((len(i["frame_s"]) - warm) / sum(i["frame_s"][warm:])
+                                  for i in (steady13, traced13))
+    idle13, window13 = device_idle_share(prof13, "preview_render_kernel", warm)
+    log(f"phase 13 preview main path: jade {MAIN_TRIS} {cfg4.width}x{cfg4.height}, 1 spp a "
+        f"frame, 2 bounces, 4 bands, {info13['frames']} frames in {info13['seconds']:.3f} s: "
+        f"{fps13:.1f} frames/s (CLI wall clock, warm-up included); launches {launches13}; "
+        f"film vs plain torch on {ids.numel()} random pixels: max abs err {err13:.3e}, "
+        f"{outside13} outside, mean rel diff {mean13:.3e}; the last frame shown and the banded "
+        f"display of frames 0-{PREVIEW_MAIN_FRAMES - 1} vs the plain postfx band by band: max "
+        f"u8 diff {disp_err13}; render_preview_mega {frame_ms13:.3f} ms per banded frame "
+        f"({band_px} pixels) and postfx {ms12:.4f} ms per full display (device time); BMP "
+        f"{size13} bytes [{gpu}]")
+    log(f"phase 13 steady state: {PREVIEW_STEADY_FRAMES} frames, frames {warm + 1}-"
+        f"{PREVIEW_STEADY_FRAMES}: {fps_steady13:.1f} frames/s (CLI wall clock); traced run: "
+        f"{fps_traced13:.1f} frames/s under torch.profiler, device idle {100 * idle13:.1f}% of "
+        f"the {window13:.2f} ms from its frame {warm + 1}'s preview launch to its last [{gpu}]")
+
     lib_note = "no single PyTorch call computes this function"
     main_shape = (f"jade 20k, 1024x1024 16 spp depth 16, {it8['_state']['lanes']} lanes "
                   f"after {it8['_state']['iterations']} iterations")
@@ -564,6 +852,8 @@ def main() -> None:
         "library_ms": None, "library_note": lib_note,
         "shape": "jade 20k, 96x96, 4 spp, depth 6 (ms, plain_ms, max_abs_err, bound_ms)",
         "main_path_ms": main_ms, "main_path_max_abs_err": err4,
+        "refract_ms": ms10, "refract_max_abs_err": err10,
+        "registers": {k: v for k, v in regs.items() if k.startswith("mega_render")},
     }]
     for name, replaces in (
             ("spawn_primary", "ops/pallas/spawn_front.py:63"),
@@ -577,6 +867,30 @@ def main() -> None:
             "launches": launches8[name], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "library_note": lib_note, "shape": main_shape})
+    for k in kernels_out[1:]:
+        if k["name"] in ("front_bounce", "resolve_bounce"):
+            k["refract_max_abs_err"] = it10[k["name"]]["max_abs_err"]
+            k["refract_ms"] = it10[k["name"]]["ms"]
+    kernels_out.append({
+        "name": "render_preview_mega", "route": "cuda", "source": src + "preview.cu",
+        "replaces": "jaderaytracerendering_tpu/ops/pallas/mega.py:1895",
+        "launches": launches13["render_preview_mega"], "max_abs_err": err11, "ms": ms11,
+        "plain_ms": plain_ms11, "bound_ms": bound11[0], "bound_by": bound11[1],
+        "library_ms": None, "library_note": lib_note,
+        "shape": "jade 20k, 96x96, 4 spp, 2 bounces (ms: profiler device time; plain_ms, "
+                 "max_abs_err, bound_ms)",
+        "main_path_ms": frame_ms13, "main_path_max_abs_err": err13,
+        "main_path_frames_per_s": fps_steady13, "main_path_frames_per_s_traced": fps_traced13,
+        "main_path_device_idle_share": idle13})
+    kernels_out.append({
+        "name": "postfx", "route": "cuda", "source": src + "postfx.cu",
+        "replaces": "jaderaytracerendering_tpu/ops/pallas/postfx.py:22",
+        "launches": launches13["postfx"], "max_abs_err": err12, "ms": ms12,
+        "plain_ms": plain_ms12, "bound_ms": bound12[0], "bound_by": bound12[1],
+        "library_ms": None, "library_note": lib_note, "call_ms": call_ms12,
+        "main_path_display_max_abs_err": disp_err13,
+        "shape": "1024x1024 film, aces, flipped (max_abs_err in u8 steps; ms: profiler "
+                 "device time, call_ms: CUDA events around a call from Python)"})
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: demo scene loading and config from flags."""
+"""Shared CLI plumbing: scene loading from render_args.txt, a JSON spec
+or a demo name, and config from flags."""
 
 from __future__ import annotations
 
@@ -6,8 +7,10 @@ import dataclasses
 import logging
 import os
 
+from ..core.camera import FixedCamera
 from ..models import demo
-from ..scene import hdr as hdr_mod
+from ..scene import hdr as hdr_mod, objloader, procedural, serialization
+from ..scene.scene import SceneObject
 from ..utils.config import RenderConfig
 
 logger = logging.getLogger("jaderaytracerendering_tpu_torch")
@@ -23,8 +26,51 @@ def stage(msg: str) -> None:
     logger.info(msg)
 
 
+_PROCEDURAL = {
+    "procedural://buddha": lambda: procedural.buddha_standin(20_000),
+    "procedural://light": procedural.quad,
+    "procedural://floor": procedural.box,
+    "procedural://box": procedural.box,
+    "procedural://quad": procedural.quad,
+    "procedural://sphere": procedural.uv_sphere,
+}
+
+
+def load_scene_spec(spec: serialization.SceneSpec, env_path):
+    """SceneSpec -> (objects, env_map, camera) — the CUDA main prologue
+    equivalent (PathTrace.cu:1486-1532 + HDR load 1647-1691)."""
+    objects = []
+    for o in spec.objects:
+        if o.path in _PROCEDURAL:
+            v, f = _PROCEDURAL[o.path]()
+            mesh = objloader.mesh_from_arrays(v, f, transform=o.transform,
+                                              normalize=o.normalize)
+        else:
+            mesh = objloader.read_obj(o.path, transform=o.transform, normalize=o.normalize)
+        objects.append(SceneObject(mesh=mesh, material=o.material,
+                                   name=os.path.basename(o.path), source_path=o.path,
+                                   transform=o.transform, normalize=o.normalize))
+        stage(f"loaded {o.path}: {mesh.n_triangles} triangles")
+    if env_path and os.path.exists(env_path):
+        env = hdr_mod.read_hdr(env_path)
+        stage(f"HDR environment: {env_path} {env.shape}")
+    else:
+        env = hdr_mod.procedural_sky(256, 512)
+        stage("HDR environment: procedural sky (no background.hdr found)")
+    return objects, env, FixedCamera(eye_point=spec.eye, rotate=spec.camera_rotate)
+
+
 def load_scene(args):
-    """Resolve --scene/--tris/--hdr into (objects, env_map, camera)."""
+    """Resolve --render-args / --scene-json / --scene (with --tris, --hdr)
+    into (objects, env_map, camera)."""
+    if args.render_args:
+        spec = serialization.read_render_args(args.render_args)
+        stage(f"read {args.render_args}: {len(spec.objects)} objects")
+        return load_scene_spec(spec, args.hdr)
+    if args.scene_json:
+        with open(args.scene_json) as f:
+            spec = serialization.spec_from_json(f.read())
+        return load_scene_spec(spec, args.hdr)
     name, tris = args.scene, args.tris
     if name == "jade":
         ds = demo.jade_scene(n_buddha_tris=tris)
@@ -54,6 +100,9 @@ def config_from_args(args) -> RenderConfig:
 
 def add_common_args(ap) -> None:
     ap.add_argument("--scene", default="jade", help="jade|diffuse|cornell|tiny")
+    ap.add_argument("--render-args", dest="render_args",
+                    help="render_args.txt written by the preview (its f command)")
+    ap.add_argument("--scene-json", dest="scene_json", help="scene spec JSON path")
     ap.add_argument("--hdr", help="background .hdr path")
     ap.add_argument("--tris", type=int, default=20_000,
                     help="procedural statue triangle count")

@@ -59,10 +59,11 @@ def _trace(render, sd, cam, cfg) -> dict:
 
 
 def _registers(log_path) -> int | None:
-    """Registers of ``mega_render_kernel`` in a build's ptxas log."""
+    """Registers of ``mega_render_kernel`` in a build's ptxas log (its
+    instance without direct refraction where the kernel is a template)."""
     lines = log_path.read_text().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "mega_render_kernel" in line:
+        if "Compiling entry" in line and "mega_render_kernel" in line and "ILb1E" not in line:
             for nxt in lines[i + 1:i + 6]:
                 if "Used" in nxt:
                     return int(nxt.split("Used")[1].split("registers")[0])

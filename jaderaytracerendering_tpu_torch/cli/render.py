@@ -1,10 +1,13 @@
 """Batch renderer CLI — the PathTrace.cu main equivalent.
 
-Renders a named demo scene at width x height x spp and writes the image
+Renders a scene (a named demo scene, render_args.txt from the preview's
+f command, or a JSON spec) at width x height x spp and writes the image
 (bottom-up BGR BMP like the reference's RenderResultCuda.bmp, or PNG):
 
     python -m jaderaytracerendering_tpu_torch.cli.render \
         --scene jade --spp 16 --out out.bmp
+    python -m jaderaytracerendering_tpu_torch.cli.render \
+        --render-args render_args.txt --spp 256 --out out.bmp
 
 With no flags this is the main path: the jade scene with 20,000 statue
 triangles, 1024x1024 at 16 spp, depth 16, through the CUDA megakernel.

@@ -82,6 +82,18 @@ class OrbitCamera:
         """inverse(lookAt(eye, eye_center, +Y)) as m[col, row]."""
         return invert(look_at(self.eye, self.eye_center, np.array([0.0, 1.0, 0.0])))
 
+    # the preview's controls (PathTrace.cpp:729-851)
+    def orbit(self, d_up: float = 0.0, d_rotate: float = 0.0) -> None:
+        self.up_angle += d_up
+        self.rotate_angle += d_rotate
+
+    def move_center(self, dx: float = 0.0, dy: float = 0.0) -> None:
+        self.eye_center[0] += dx
+        self.eye_center[1] += dy
+
+    def dolly(self, dr: float) -> None:
+        self.r += dr
+
 
 def camera_tensors(cam, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(eye [3], camera_rotate [4, 4]) as float32 tensors on ``device``."""

@@ -79,6 +79,13 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def vreflect(d: V3, n: V3) -> V3:
+    """d - 2 (d.n) n (the reflection inside direct refraction,
+    PathTrace.cu:1217)."""
+    k = 2.0 * vdot(d, n)
+    return V3(d.x - n.x * k, d.y - n.y * k, d.z - n.z * k)
+
+
 def vdiv(v: V3, c: float) -> V3:
     return V3(div(v.x, c), div(v.y, c), div(v.z, c))
 

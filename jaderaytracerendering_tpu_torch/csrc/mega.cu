@@ -28,16 +28,22 @@
 // only a boolean is needed. Work redistribution, wavefronts, a shorter
 // stack and packed node layouts are later work.
 //
-// Direct refraction (DIR_REFRACT) is not handled; the wrapper raises.
+// Direct refraction (DIR_REFRACT, the in-kernel march of _mega_kernel):
+// the kernel is a template on HR, and the wrapper launches the HR = true
+// instance only for scenes with DIR_REFRACT materials, so the march's
+// state (its loop of walks and 11 values) is not live in the code that
+// renders other scenes: their instance compiles as it did without it.
 
 #include "path.cuh"
 
 namespace {
 
 // One bounce of an active path (wavefront.bounce_step for one lane):
-// returns accept and writes the stack entry (dir_out, rate_out).
+// returns accept and writes the stack entry (dir_out, rate_out); with HR,
+// `killed` is set when a direct refraction march escaped.
+template <bool HR>
 __device__ bool bounce(const SceneArgs& s, const RenderArgs& r, uint32_t hb,
-                       Path& p, V& dir_out, V& rate_out) {
+                       Path& p, V& dir_out, V& rate_out, bool& killed) {
   Front f;
   bounce_front_dev(s, r, hb, p, f);
   if (f.emit_break) {  // break with l_dir = Le (counted twice at bounce 0)
@@ -58,8 +64,10 @@ __device__ bool bounce(const SceneArgs& s, const RenderArgs& r, uint32_t hb,
       l_dir = l_dir + light_contrib_dev(s, f, i, ldir);
     }
   }
-  // the directions only now, so that they are not held across the light walks
-  bounce_dirs_dev(s, hb, p, f);
+  // the march and the directions only now, so that they are not held
+  // across the light walks (a direct refraction lane has no NEE)
+  if (HR && f.is_dirref) refract_march_dev(s, r, hb, p, f);
+  bounce_dirs_dev<HR>(s, hb, p, f);
   bool h_hit = false;
   if (f.needs_nee) {
     float ht;
@@ -68,11 +76,20 @@ __device__ bool bounce(const SceneArgs& s, const RenderArgs& r, uint32_t hb,
   }
   float c_t;
   int c_idx;
-  bool c_hit = trace(s, f.nee_src, f.cdir, f.nee_excl, false, c_t, c_idx);
-  return resolve_tail_dev(s, r, hb, f, l_dir, h_hit, c_hit, c_t, c_idx, p, dir_out, rate_out);
+  V c_src = f.nee_src;
+  int c_excl = f.nee_excl;
+  if (HR && f.is_dirref) {  // the continuation leaves the medium at the march's exit
+    c_src = f.ref_src;
+    c_excl = f.ref_last;
+    killed = f.ref_escaped;
+  }
+  bool c_hit = trace(s, c_src, f.cdir, c_excl, false, c_t, c_idx);
+  return resolve_tail_dev<HR>(s, r, hb, f, l_dir, h_hit, c_hit, c_t, c_idx, p, dir_out,
+                              rate_out);
 }
 
 // One jittered camera path of pixel `pix`, sample `smp` -> radiance.
+template <bool HR>
 __device__ V trace_sample(const SceneArgs& s, const RenderArgs& r, uint32_t pix,
                           uint32_t smp, float& rays) {
   uint32_t h0 = sample_hash(pix, smp);
@@ -93,15 +110,20 @@ __device__ V trace_sample(const SceneArgs& s, const RenderArgs& r, uint32_t pix,
   for (int b = 0; b < r.max_depth; ++b) {
     rays += per_bounce;
     V dir_b, rate_b;
-    bool accept = bounce(s, r, bounce_hash(h0, r.seed, b), p, dir_b, rate_b);
+    bool killed = false;
+    bool accept = bounce<HR>(s, r, bounce_hash(h0, r.seed, b), p, dir_b, rate_b, killed);
     L = L + T * dir_b;
     T = T * rate_b;
-    if (!accept) break;
+    if (!accept) {
+      if (HR && killed) L = {0.0f, 0.0f, 0.0f};  // the escape kill (cu:1254)
+      break;
+    }
     if (b == r.max_depth - 1) L = L + T * dir_b;  // the fold's depth-cap seed
   }
   return le0 + L;
 }
 
+template <bool HR>
 __global__ void __launch_bounds__(128)
 mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out) {
   int pixel = blockIdx.x * blockDim.x + threadIdx.x;
@@ -110,7 +132,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out) {
   float rays = 0.0f;
   for (int k = 0; k < r.spp; ++k) {
     float n;
-    V rad = trace_sample(s, r, (uint32_t)pixel, r.sample_base + (uint32_t)k, n);
+    V rad = trace_sample<HR>(s, r, (uint32_t)pixel, r.sample_base + (uint32_t)k, n);
     sum = sum + rad;
     rays += n;
   }
@@ -128,7 +150,11 @@ extern "C" {
 int mega_render(const SceneArgs* s, const RenderArgs* r, float* out, void* stream) {
   int threads = 128;
   int blocks = (r->npix + threads - 1) / threads;
-  mega_render_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, *r, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s->has_refract)
+    mega_render_kernel<true><<<blocks, threads, 0, st>>>(*s, *r, out);
+  else
+    mega_render_kernel<false><<<blocks, threads, 0, st>>>(*s, *r, out);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,15 @@
 // feature rows and 19-light mask cap have no counterpart. Film adds are
 // float atomics (the order of sums within a pixel varies between runs);
 // the counters are integer atomics, one per block.
+//
+// Direct refraction: the front kernel runs the march (refract_march_dev)
+// of each lane that takes it and writes its results per lane (rf f32
+// [9, M]: exit direction, exit point, rate; ri i32 [2, M]: escaped, last
+// triangle; zero for other lanes), which the resolve kernel reads: the
+// march traces up to max_refract segments and cannot be recomputed there
+// as the rest of the front is. Front and resolve are templates on HR, and
+// the HR = false instances (scenes without DIR_REFRACT) neither read nor
+// write the buffers.
 
 #include "path.cuh"
 
@@ -47,12 +56,15 @@ struct PoolArgs {
   long long total;  // samples in the queue
   int m;            // lanes
   int npix;
+  float* rf;        // [9, M] the march's exit dir, exit point, rate (HR only)
+  int* ri;          // [2, M] the march's escaped flag, last triangle (HR only)
 };
 
 namespace {
 
 enum { F_SRC = 0, F_DIR = 3, F_T = 6, F_L = 9, F_LE0 = 12 };
 enum { I_ACTIVE = 0, I_HIT = 1, I_BOUNCE = 2, I_SLOT = 3, I_PIX = 4, I_SMP = 5 };
+enum { R_DIR = 0, R_SRC = 3, R_RATE = 6, R_ESCAPED = 0, R_LAST = 1 };
 
 __device__ __forceinline__ V row3(const float* a, int row, int m, int i) {
   return {a[row * m + i], a[(row + 1) * m + i], a[(row + 2) * m + i]};
@@ -209,6 +221,7 @@ __device__ __forceinline__ Path lane_path(const PoolArgs& q, int i, uint32_t see
 }
 
 // ---- front: one bounce up to its traces, as stacked segment rays ---------
+template <bool HR>
 __global__ void __launch_bounds__(LANE_THREADS)
 front_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, float* __restrict__ seg_o,
                     float* __restrict__ seg_d, int* __restrict__ seg_x) {
@@ -217,17 +230,28 @@ front_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, float* __restrict__ s
   if (i >= m) return;
   const V zero = {0.0f, 0.0f, 0.0f};
   int e_cnt = s.n_emit;
-  bool nee = false, alive = false;
+  bool nee = false, alive = false, dirref = false;
   int excl = 0;
   Front f;
   uint32_t hb = 0;
   if (q.is[I_ACTIVE * m + i] != 0) {
     Path p = lane_path(q, i, r.seed, hb);
     bounce_front_dev(s, r, hb, p, f);
-    if (!f.emit_break) bounce_dirs_dev(s, hb, p, f);
+    if (!f.emit_break) {
+      dirref = HR && f.is_dirref;
+      if (dirref) refract_march_dev(s, r, hb, p, f);
+      bounce_dirs_dev<HR>(s, hb, p, f);
+    }
     alive = !f.emit_break;
     nee = f.needs_nee;
     excl = f.nee_excl;
+  }
+  if (HR) {  // the march's results for the resolve kernel; zero elsewhere
+    put3(q.rf, R_DIR, m, i, dirref ? f.ref_dir : zero);
+    put3(q.rf, R_SRC, m, i, dirref ? f.ref_src : zero);
+    put3(q.rf, R_RATE, m, i, dirref ? f.ref_rate : zero);
+    q.ri[R_ESCAPED * m + i] = dirref ? (int)f.ref_escaped : 0;
+    q.ri[R_LAST * m + i] = dirref ? f.ref_last : 0;
   }
   // masked segments get zero rays, which every walk treats as a miss
   for (int l = 0; l < e_cnt; ++l) {
@@ -240,9 +264,9 @@ front_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, float* __restrict__ s
   put3(seg_o, 3 * e_cnt, m, i, nee ? f.nee_src : zero);
   put3(seg_d, 3 * e_cnt, m, i, nee ? f.hdir : zero);
   seg_x[e_cnt * m + i] = excl;
-  put3(seg_o, 3 * (e_cnt + 1), m, i, alive ? f.nee_src : zero);
+  put3(seg_o, 3 * (e_cnt + 1), m, i, alive ? (dirref ? f.ref_src : f.nee_src) : zero);
   put3(seg_d, 3 * (e_cnt + 1), m, i, alive ? f.cdir : zero);
-  seg_x[(e_cnt + 1) * m + i] = excl;
+  seg_x[(e_cnt + 1) * m + i] = dirref ? f.ref_last : excl;
 }
 
 // ---- trace: nearest hit per (segment, lane); one segment any-hit --------
@@ -262,6 +286,7 @@ trace_segments_kernel(SceneArgs s, const float* __restrict__ o, const float* __r
 }
 
 // ---- resolve: the bounce after its traces + the pool's accumulation -----
+template <bool HR>
 __global__ void __launch_bounds__(LANE_THREADS)
 resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __restrict__ bt,
                       const int* __restrict__ bi) {
@@ -275,7 +300,15 @@ resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __rest
     Path p = lane_path(q, i, r.seed, hb);
     Front f;
     bounce_front_dev(s, r, hb, p, f);
-    if (!f.emit_break) bounce_dirs_dev(s, hb, p, f);
+    bool dirref = HR && !f.emit_break && f.is_dirref;
+    if (dirref) {  // the front kernel's march
+      f.ref_dir = row3(q.rf, R_DIR, m, i);
+      f.ref_src = row3(q.rf, R_SRC, m, i);
+      f.ref_rate = row3(q.rf, R_RATE, m, i);
+      f.ref_escaped = q.ri[R_ESCAPED * m + i] != 0;
+      f.ref_last = q.ri[R_LAST * m + i];
+    }
+    if (!f.emit_break) bounce_dirs_dev<HR>(s, hb, p, f);
     // visibility from the raw trace rows (bounce_resolve2's contract)
     V l_dir = {0.0f, 0.0f, 0.0f};
     if (f.needs_nee) {
@@ -291,8 +324,8 @@ resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __rest
     bool c_hit = c_t < INF_T;
     int c_idx = c_hit ? bi[(e_cnt + 1) * m + i] : 0;
     V dir_b, rate_b;
-    bool accept = resolve_tail_dev(s, r, hb, f, l_dir, h_hit, c_hit, c_t, c_idx, p, dir_b,
-                                   rate_b);
+    bool accept = resolve_tail_dev<HR>(s, r, hb, f, l_dir, h_hit, c_hit, c_t, c_idx, p, dir_b,
+                                       rate_b);
     // forward composite with the reference's depth-cap seed (pool.py)
     V T = row3(q.fs, F_T, m, i);
     V L = row3(q.fs, F_L, m, i);
@@ -302,6 +335,7 @@ resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __rest
     bool capped = accept && b2 >= r.max_depth;
     if (capped) L = L + T * dir_b;
     finished = !accept || capped;
+    if (dirref && f.ref_escaped) L = {0.0f, 0.0f, 0.0f};  // the escape kill (cu:1254)
     if (finished) {
       film_add(q.film, q.is[I_SLOT * m + i], L + row3(q.fs, F_LE0, m, i));
       q.is[I_ACTIVE * m + i] = 0;
@@ -347,8 +381,11 @@ int spawn_primary(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, in
 int front_bounce(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, float* seg_o,
                  float* seg_d, int* seg_x, void* stream) {
   int blocks = (q->m + LANE_THREADS - 1) / LANE_THREADS;
-  front_bounce_kernel<<<blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(*s, *r, *q, seg_o,
-                                                                         seg_d, seg_x);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s->has_refract)
+    front_bounce_kernel<true><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, seg_o, seg_d, seg_x);
+  else
+    front_bounce_kernel<false><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, seg_o, seg_d, seg_x);
   return (int)cudaGetLastError();
 }
 
@@ -368,7 +405,11 @@ int trace_segments(const SceneArgs* s, const float* o, const float* d, const int
 int resolve_bounce(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, const float* bt,
                    const int* bi, void* stream) {
   int blocks = (q->m + LANE_THREADS - 1) / LANE_THREADS;
-  resolve_bounce_kernel<<<blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(*s, *r, *q, bt, bi);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s->has_refract)
+    resolve_bounce_kernel<true><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, bt, bi);
+  else
+    resolve_bounce_kernel<false><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, bt, bi);
   return (int)cudaGetLastError();
 }
 

@@ -40,7 +40,6 @@ from ..core.film import Film
 from ..ops import bounce_front, bounce_resolve, spawn_front, trace
 from ..ops.lanes import C_DONE, C_RAYS, PoolState
 from ..utils.config import RenderConfig
-from . import wavefront
 
 # lanes of the pool when the caller gives none (capped at npix * spp):
 # the fastest of 2^18 .. 2^21 at the main path on the H100 (PERF.md,
@@ -80,7 +79,6 @@ def render_film_pool(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     -> Film. ``pool_m`` lanes (default ``POOL_LANES``, capped at the queue
     length). ``stats``, when given, receives ``rays`` (useful rays,
     counted exactly) and ``iterations``."""
-    wavefront.check_supported(sd)
     npix = cfg.width * cfg.height
     if film is None:
         film = Film.create(cfg.height, cfg.width, sd.device)

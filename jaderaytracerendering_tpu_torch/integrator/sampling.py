@@ -69,6 +69,21 @@ def fresnel_exit(r0, cos_abs):
     return r0 - (1.0 - r0) * oc2 * oc2 * oc
 
 
+def refract_dir_p(d_in: V3, normal: V3, eta):
+    """Cg-style refraction (gen_refract_ray, PathTrace.cu:876-894):
+    ``d_in`` points into the surface -> (dir V3, full_reflex). On total
+    internal reflection the reference returns ``d_in`` unchanged and sets
+    the flag."""
+    cosi = vdot(d_in, normal)
+    n = vwhere(cosi > 0, -normal, normal)
+    cosi = torch.abs(cosi)
+    cost2 = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    full_reflex = cost2 <= 0
+    safe = torch.sqrt(torch.clamp_min(cost2, 0.0))
+    refracted = d_in * eta + n * (eta * cosi - safe)
+    return vwhere(full_reflex, d_in, refracted), full_reflex
+
+
 def bssrdf_p(dist, sigma: V3) -> V3:
     """(e^{-d/s} + e^{-(d/3)/s}) / (s * 8 pi d) per channel
     (PathTrace.cu:1062-1063); ``dist`` is a plane."""

@@ -23,8 +23,12 @@ Ray queries go through ``nearest_planes``: the trace kernel
 version of the megakernel passes it as the ``query`` of
 ``trace_radiance_p``.
 
-Direct refraction (DIR_REFRACT materials, the reference's internal
-march) is not ported yet: scenes with ``has_refract`` raise.
+Direct refraction (DIR_REFRACT materials): ``refract_march`` follows the
+refracted ray through the medium before the bounce's trace (the JAX
+package's ``_refract_march``, PathTrace.cu:1180-1234); its exit ray is
+the bounce's continuation, and a path whose march escapes the scene is
+killed (its radiance after the primary hit is zeroed). The path state is
+(active, ray_src, out_dir, hit_idx, killed).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import typing as _t
 import torch
 
 from ..core import rng
-from ..core.vecmath import V3, div, vcat, vdiv, vdot, vnorm, vnormalize, vrows, vwhere
+from ..core.vecmath import (V3, div, vcat, vdiv, vdot, vnorm, vnormalize, vreflect, vrows,
+                            vwhere)
 from ..ops import trace
 from ..scene import envmap
 from . import sampling
@@ -51,12 +56,6 @@ EMIT_SKIP_EPS = 1.5e-4    # PathTrace.cu:1005
 BASE_SITES = [S.SELECT_REFRACT, S.SELECT_SSS, S.AREA_CDF, S.EXIT_U,
               S.EXIT_V, S.HDR_COS, S.HDR_PHI, S.CONT_COS, S.CONT_PHI,
               S.RR]
-
-
-def check_supported(sd) -> None:
-    if sd.has_refract:
-        raise NotImplementedError(
-            "direct refraction (DIR_REFRACT materials) is not ported yet")
 
 
 def _unit_p(v: V3) -> V3:
@@ -102,7 +101,7 @@ def gather_rows(sd, tri) -> Surface:
 def branch_masks(active, u_sel, u_sss, refract_mode, reflex_mode, emissive: V3,
                  sss_rate: float):
     """Branch selection (PathTrace.cu:923-931) -> (emit_break, alive,
-    sss_entry, sss_exit, is_diffuse, is_mirror)."""
+    sss_entry, sss_exit, is_diffuse, is_mirror, is_dirref)."""
     emit_break = active & ((emissive.x > EMIT_BREAK_EPS)
                            | (emissive.y > EMIT_BREAK_EPS)
                            | (emissive.z > EMIT_BREAK_EPS))
@@ -113,7 +112,69 @@ def branch_masks(active, u_sel, u_sss, refract_mode, reflex_mode, emissive: V3,
     sss_exit = is_sss & ~(u_sss < sss_rate)
     is_diffuse = alive & ~take_refract & (reflex_mode == 0)
     is_mirror = alive & ~take_refract & (reflex_mode == 1)
-    return emit_break, alive, sss_entry, sss_exit, is_diffuse, is_mirror
+    is_dirref = take_refract & (refract_mode == 2)
+    return emit_break, alive, sss_entry, sss_exit, is_diffuse, is_mirror, is_dirref
+
+
+class Refr(_t.NamedTuple):
+    """``refract_march`` results per lane (meaningful where the lane takes
+    direct refraction this bounce)."""
+
+    dir: V3        # exit direction (raw), the bounce's continuation
+    rate: V3       # throughput through the medium
+    escaped: _t.Any  # the march left the scene: the path is killed
+    last: _t.Any   # the last triangle hit, the continuation's exclusion
+    src: V3        # the exit point, the continuation's origin
+
+
+def refract_march(alive_ref, tri, miu, normal: V3, ray_src: V3, out_dir: V3, sd, cfg,
+                  u_site, query) -> Refr:
+    """DIR_REFRACT internal march (PathTrace.cu:1180-1234; the JAX
+    package's ``_refract_march``): refract into the medium, then up to
+    ``cfg.max_refract_bounces`` steps: trace to the next surface,
+    absorb ``rate ** t``, refract out (Fresnel-weighted, x1.25) or
+    reflect inside (total internal reflection, or a draw below
+    ``internal_reflect_rate``: x Fresnel x5). ``u_site(site)`` draws the
+    bounce's uniform for a site; ``query`` is the ray query. Lanes stop
+    once they exit or escape; the loop ends when none is left."""
+    r0 = sampling.schlick_r0(miu)
+    fres_i = sampling.fresnel_entry(r0, torch.abs(vdot(normal, out_dir)))
+    rdir, _ = sampling.refract_dir_p(-out_dir, normal, torch.reciprocal(miu))
+    rdir = vwhere(alive_ref, rdir, 0.0)
+    one_m = 1.0 - fres_i
+    rate = V3(one_m, one_m, one_m)
+    src = ray_src
+    exclude = tri
+    escaped = torch.zeros_like(alive_ref)
+    exited = torch.zeros_like(alive_ref)
+    for i in range(cfg.max_refract_bounces):
+        live = alive_ref & ~exited & ~escaped
+        if not bool(live.any()):
+            break
+        # lanes that are not live trace a zero direction: a miss
+        hit, idx, t = query(src, vwhere(live, rdir, 0.0), torch.where(live, exclude, -2), sd,
+                            cfg.bvh_stack_size)
+        escaped = escaped | (live & ~hit)
+        step_ok = live & hit
+        rdir_u = _unit_p(rdir)
+        hp = src + rdir_u * t
+        n_i = vrows(sd.tri_norm[idx])
+        new_rdir, full_reflex = sampling.refract_dir_p(rdir_u, n_i, miu)
+        rr8 = vrows(sd.mat_refract_rate[sd.tri_obj[idx].long()])
+        absorb = V3(torch.pow(rr8.x, t), torch.pow(rr8.y, t), torch.pow(rr8.z, t))
+        rate = vwhere(step_ok, rate * absorb, rate)
+        src = vwhere(step_ok, hp, src)
+        exclude = torch.where(step_ok, idx.to(exclude.dtype), exclude)
+        fres_o = sampling.fresnel_exit(r0, torch.abs(vdot(new_rdir, n_i)))
+        reflect_pick = full_reflex | (u_site(S.REFRACT_BASE + i) < cfg.internal_reflect_rate)
+        reflected = vreflect(new_rdir, n_i)
+        # exit via refraction: x1.25 compensates the 0.8 continue pdf
+        rate = vwhere(step_ok & ~reflect_pick, rate * (1.0 - fres_o) * 1.25, rate)
+        # internal (non-total) reflection: x fresnel_o x5 (PathTrace.cu:1220)
+        rate = vwhere(step_ok & reflect_pick & ~full_reflex, rate * fres_o * 5.0, rate)
+        rdir = vwhere(step_ok, vwhere(reflect_pick, reflected, new_rdir), rdir)
+        exited = exited | (step_ok & ~reflect_pick)
+    return Refr(rdir, rate, escaped, exclude, src)
 
 
 class Front(_t.NamedTuple):
@@ -125,6 +186,8 @@ class Front(_t.NamedTuple):
     sss_entry: _t.Any
     sss_exit: _t.Any
     is_mirror: _t.Any
+    is_dirref: _t.Any
+    ref_escaped: _t.Any
     k: _t.Any
     u_rr: _t.Any
     fr: V3
@@ -136,22 +199,27 @@ class Front(_t.NamedTuple):
     nee_norm: V3
     exit_norm: V3
     nee_src: V3
+    cont_src: V3
     hdir: V3
     cdir: V3
     nee_excl: _t.Any
+    cont_excl: _t.Any
     ldirs: list
     l_gates: list
+    ref_rate: V3
 
 
 def bounce_front(active, ray_src: V3, out_dir: V3, tri, mat: Surface, us,
-                 sd, cfg) -> Front:
+                 sd, cfg, refr: _t.Optional[Refr] = None) -> Front:
     """The bounce's pre-trace computation (PathTrace.cu:905-1070): branch
     selection, the SSS exit point and its shading values, and the NEE,
     HDR and continuation directions. ``us`` holds the bounce's draws in
-    ``BASE_SITES`` + light order."""
+    ``BASE_SITES`` + light order; ``refr`` the march results (needed when
+    ``sd.has_refract``): a direct-refraction lane continues from the
+    march's exit point along its exit direction."""
     e_cnt = sd.n_emit
     normal = mat.normal
-    emit_break, alive, sss_entry, sss_exit, is_diffuse, is_mirror = \
+    emit_break, alive, sss_entry, sss_exit, is_diffuse, is_mirror, is_dirref = \
         branch_masks(active, us[0], us[1], mat.refract, mat.reflex,
                      mat.emissive, cfg.sss_rate)
     k = torch.where(mat.refract != 0, 2.0, 1.0)
@@ -205,6 +273,15 @@ def bounce_front(active, ray_src: V3, out_dir: V3, tri, mat: Surface, us,
                   sampling.fold_same_hemisphere_p(cdir_raw, normal, out_dir))
     cdir_mirror = normal * (2.0 * vdot(out_dir, normal)) - out_dir  # cu:1378
     cdir = vwhere(is_mirror, cdir_mirror, cdir)
+    if sd.has_refract:
+        cdir = vwhere(is_dirref, refr.dir, cdir)
+        cont_src = vwhere(is_dirref, refr.src, nee_src)
+        cont_excl = torch.where(is_dirref, refr.last.to(tri.dtype), nee_excl)
+        ref_rate, ref_escaped = refr.rate, refr.escaped
+    else:
+        cont_src, cont_excl = nee_src, nee_excl
+        zero = torch.zeros_like(ray_src.x)
+        ref_rate, ref_escaped = V3(zero, zero, zero), torch.zeros_like(active)
 
     needs_nee = is_diffuse | sss_entry | sss_exit
     ldirs, l_gates = [], []
@@ -220,16 +297,18 @@ def bounce_front(active, ray_src: V3, out_dir: V3, tri, mat: Surface, us,
         l_gates.append(needs_nee & (same_hemi | sss_exit))
 
     return Front(alive, emit_break, needs_nee, sss_entry, sss_exit, is_mirror,
-                 k, us[9], fr, fr_alb, mat.emissive, bss, r0_sss, total_area,
-                 nee_norm, exit_norm, nee_src, hdir, cdir, nee_excl, ldirs,
-                 l_gates)
+                 is_dirref, ref_escaped, k, us[9], fr, fr_alb, mat.emissive, bss, r0_sss,
+                 total_area, nee_norm, exit_norm, nee_src, cont_src, hdir, cdir, nee_excl,
+                 cont_excl, ldirs, l_gates, ref_rate)
 
 
 def resolve_tail(f: Front, sd, cfg, active, l_oks, sky: V3, sky_c: V3,
                  cdir_u: V3, c_obj_em: V3, c_t, c_hit, h_hit):
     """Post-trace resolve (PathTrace.cu:941-1416 epilogue): NEE light and
     env contributions, branch scales, Russian roulette, continuation
-    rates and break values -> (dir_out, rate_out, new_src, accept)."""
+    rates and break values -> (dir_out, rate_out, new_src, accept, kill);
+    ``kill`` marks the direct-refraction lanes whose march escaped (None
+    without refraction)."""
     zero = torch.zeros_like(f.u_rr)
     zeros3 = V3(zero, zero, zero)
     rr = cfg.rr_rate
@@ -271,7 +350,11 @@ def resolve_tail(f: Front, sd, cfg, active, l_oks, sky: V3, sky_c: V3,
     rr_ok = f.u_rr < cfg.rr_rate
     c_nonemit = torch.maximum(torch.maximum(c_obj_em.x, c_obj_em.y),
                               c_obj_em.z) < EMIT_SKIP_EPS
-    accept = f.alive & rr_ok & c_hit & (f.is_mirror | c_nonemit)
+    accept = f.alive & rr_ok & c_hit & (f.is_mirror | f.is_dirref | c_nonemit)
+    kill = None
+    if sd.has_refract:  # an escaped march kills the path (cu:1254)
+        accept = accept & ~(f.is_dirref & f.ref_escaped)
+        kill = f.alive & f.is_dirref & f.ref_escaped
 
     cos_c = torch.abs(vdot(cdir_u, f.nee_norm))
     rate = vwhere(f.sss_entry, vdiv(f.fr * cos_c, rr) * k_entry,  # cu:1008
@@ -284,47 +367,64 @@ def resolve_tail(f: Front, sd, cfg, active, l_oks, sky: V3, sky_c: V3,
         rate = vwhere(f.sss_exit, rate_exit, rate)
     rate_mirror = f.fr * div(f.k, rr / PI)  # cu:1391
     rate = vwhere(f.is_mirror, rate_mirror, rate)
+    if sd.has_refract:
+        rate_dirref = f.ref_rate * div(f.k, rr)
+        rate = vwhere(f.is_dirref, rate_dirref, rate)
 
     # break values (cu:1396, 1254)
     break_val = vwhere(f.is_mirror & rr_ok & ~c_hit, sky_c * rate_mirror,
                        vwhere(f.is_mirror, zeros3, l_dir))
+    if sd.has_refract:
+        break_val = vwhere(f.is_dirref & rr_ok & ~c_hit & ~f.ref_escaped,
+                           sky_c * f.ref_rate * div(f.k, rr),
+                           vwhere(f.is_dirref, zeros3, break_val))
     break_val = vwhere(f.emit_break, f.emissive, break_val)
 
     # the (dir_b, rate_b) stack entry (cu:1410-1415)
-    dir_out = vwhere(accept, vwhere(f.is_mirror, zeros3, l_dir),
+    dir_out = vwhere(accept, vwhere(f.is_mirror | f.is_dirref, zeros3, l_dir),
                      vwhere(active, break_val, 0.0))
     rate_out = vwhere(accept, rate, vwhere(active, 0.0, 1.0))
-    new_src = f.nee_src + cdir_u * c_t
-    return dir_out, rate_out, new_src, accept
+    new_src = f.cont_src + cdir_u * c_t
+    return dir_out, rate_out, new_src, accept, kill
 
 
-def front_step(state, b, pixel_id, sample_id, sd, cfg):
-    """The bounce up to its trace: rows, RNG, ``bounce_front`` and the
-    segment rays. ``state`` = (active, ray_src V3, out_dir V3, hit_idx);
-    ``b`` is the bounce (an int, or a tensor of per-lane bounces).
-    Returns (Front, seg_o, seg_d): E + 2 segments (light i, then the HDR
-    ray, then the continuation), all excluding ``Front.nee_excl``; masked
-    lanes get zero rays, which every walk treats as a miss."""
-    active, ray_src, out_dir, hit_idx = state
+def front_step(state, b, pixel_id, sample_id, sd, cfg, query=nearest_planes,
+               refr: _t.Optional[Refr] = None):
+    """The bounce up to its trace: rows, RNG, the refraction march (when
+    ``sd.has_refract`` and no ``refr`` is given; ``query`` is its ray
+    query), ``bounce_front`` and the segment rays. ``state`` = (active,
+    ray_src V3, out_dir V3, hit_idx, killed); ``b`` is the bounce (an int,
+    or a tensor of per-lane bounces). Returns (Front, seg_o, seg_d,
+    seg_x): E + 2 segments (light i, then the HDR ray, then the
+    continuation) and their excluded triangles; masked lanes get zero
+    rays, which every walk treats as a miss."""
+    active, ray_src, out_dir, hit_idx, _ = state
     e_cnt = sd.n_emit
     tri = torch.where(active, hit_idx, 0)
     mat = gather_rows(sd, tri)
     sites = (BASE_SITES + [S.LIGHT_BASE + 2 * i for i in range(e_cnt)]
              + [S.LIGHT_BASE + 2 * i + 1 for i in range(e_cnt)])
     us = rng.uniform_sites(pixel_id, sample_id, b + 1, sites, cfg.seed)
-    f = bounce_front(active, ray_src, out_dir, tri, mat, us, sd, cfg)
+    if sd.has_refract and refr is None:
+        is_dirref = branch_masks(active, us[0], us[1], mat.refract, mat.reflex,
+                                 mat.emissive, cfg.sss_rate)[-1]
+        refr = refract_march(
+            is_dirref, tri, mat.refract_index, mat.normal, ray_src, out_dir, sd, cfg,
+            lambda site: rng.uniform(pixel_id, sample_id, b + 1, site, cfg.seed), query)
+    f = bounce_front(active, ray_src, out_dir, tri, mat, us, sd, cfg, refr)
     nee_o = vwhere(f.needs_nee, f.nee_src, 0.0)
-    seg_o = [nee_o] * (e_cnt + 1) + [vwhere(f.alive, f.nee_src, 0.0)]
+    seg_o = [nee_o] * (e_cnt + 1) + [vwhere(f.alive, f.cont_src, 0.0)]
     seg_d = ([vwhere(f.needs_nee, ld, 0.0) for ld in f.ldirs]
              + [vwhere(f.needs_nee, f.hdir, 0.0), vwhere(f.alive, f.cdir, 0.0)])
-    return f, seg_o, seg_d
+    seg_x = [f.nee_excl] * (e_cnt + 1) + [f.cont_excl]
+    return f, seg_o, seg_d, seg_x
 
 
 def resolve_step(f: Front, state, hits, idxs, ts, sd, cfg):
     """The bounce after its trace: per-segment hit/idx/t lists (the
     ``front_step`` segment order; only the HDR segment's hit is read) ->
-    ((accept, ray_src, out_dir, hit_idx), (dir_b V3, rate_b V3))."""
-    active, ray_src, out_dir, hit_idx = state
+    ((accept, ray_src, out_dir, hit_idx, killed), (dir_b V3, rate_b V3))."""
+    active, ray_src, out_dir, hit_idx, killed = state
     e_cnt = sd.n_emit
     h_hit = hits[e_cnt]
     c_hit, c_idx, c_t = hits[e_cnt + 1], idxs[e_cnt + 1], ts[e_cnt + 1]
@@ -340,24 +440,26 @@ def resolve_step(f: Front, state, hits, idxs, ts, sd, cfg):
     l_oks = [f.l_gates[i] & hits[i] & (idxs[i] == sd.emit_idx[i])
              for i in range(e_cnt)]
 
-    dir_out, rate_out, new_src, accept = resolve_tail(
+    dir_out, rate_out, new_src, accept, kill = resolve_tail(
         f, sd, cfg, active, l_oks, sky, sky_c, cdir_u, c_obj_em, c_t, c_hit,
         h_hit)
     ray_src = vwhere(accept, new_src, ray_src)
     out_dir = vwhere(accept, -cdir_u, out_dir)
     hit_idx = torch.where(accept, c_idx.to(hit_idx.dtype), hit_idx)
-    return (accept, ray_src, out_dir, hit_idx), (dir_out, rate_out)
+    if kill is not None:
+        killed = killed | kill
+    return (accept, ray_src, out_dir, hit_idx, killed), (dir_out, rate_out)
 
 
 def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg, query=nearest_planes):
     """One masked bounce. ``state`` = (active, ray_src V3, out_dir V3,
-    hit_idx); ``query`` is the ray query. Returns (state, (dir_b V3,
-    rate_b V3))."""
+    hit_idx, killed); ``query`` is the ray query (of the march too).
+    Returns (state, (dir_b V3, rate_b V3))."""
     m = state[1].x.shape[0]
-    f, seg_o, seg_d = front_step(state, b, pixel_id, sample_id, sd, cfg)
+    f, seg_o, seg_d, seg_x = front_step(state, b, pixel_id, sample_id, sd, cfg, query)
     # one nearest-hit batch of all segments
-    bhit, bidx, bt = query(vcat(seg_o), vcat(seg_d), torch.cat([f.nee_excl] * len(seg_o)),
-                           sd, cfg.bvh_stack_size)
+    bhit, bidx, bt = query(vcat(seg_o), vcat(seg_d), torch.cat(seg_x), sd,
+                           cfg.bvh_stack_size)
     rows = [slice(s * m, (s + 1) * m) for s in range(len(seg_o))]
     return resolve_step(f, state, [bhit[r] for r in rows], [bidx[r] for r in rows],
                         [bt[r] for r in rows], sd, cfg)
@@ -380,7 +482,6 @@ def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
     ``with_stats=True`` also returns each lane's count of useful rays
     (the primary plus E + 2 per bounce the lane entered alive). ``query``
     is the ray query of every trace."""
-    check_supported(sd)
     m = origins.x.shape[0]
     d_unit = _unit_p(dirs)
     ex0 = torch.full((m,), -1, dtype=torch.int32, device=origins.x.device)
@@ -388,7 +489,7 @@ def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
     sky0 = envmap.sample_env(sd.env_map, d_unit, cfg.hdr_clamp)
     first = torch.where(hit0, idx0, 0)
     le0 = vrows(sd.mat_emissive[sd.tri_obj[first].long()])
-    state = (hit0, origins + d_unit * t0, -d_unit, first)
+    state = (hit0, origins + d_unit * t0, -d_unit, first, torch.zeros_like(hit0))
     rays = torch.ones((m,), dtype=torch.float32, device=origins.x.device)
     dir_list, rate_list = [], []
     for b in range(cfg.max_depth):
@@ -396,6 +497,6 @@ def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
         state, (d_b, r_b) = bounce_step(state, b, pixel_id, sample_id, sd, cfg, query)
         dir_list.append(d_b)
         rate_list.append(r_b)
-    li = composite_p(dir_list, rate_list)
+    li = vwhere(state[4], 0.0, composite_p(dir_list, rate_list))  # escape kill
     radiance = vwhere(hit0, le0 + li, sky0)
     return (radiance, rays) if with_stats else radiance

@@ -17,7 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.camera import OrbitCamera
-from ..scene import hdr, material, procedural, transforms
+from ..scene import hdr, material, procedural, serialization, transforms
 from ..scene.objloader import mesh_from_arrays, read_obj
 from ..scene.scene import SceneObject
 
@@ -137,3 +137,20 @@ def tiny_scene(env_shape: tuple[int, int] = (32, 64)) -> DemoScene:
     ]
     env = hdr.procedural_sky(*env_shape)
     return DemoScene(objects=objs, env_map=env, camera=OrbitCamera())
+
+
+def to_spec(ds: DemoScene) -> serialization.SceneSpec:
+    """SceneSpec for render_args.txt round-trips (paths may be procedural://)."""
+    return serialization.SceneSpec(
+        eye=ds.camera.eye,
+        camera_rotate=ds.camera.camera_rotate,
+        objects=[
+            serialization.ObjectSpec(
+                path=o.source_path or f"procedural://{o.name}",
+                transform=o.transform if o.transform is not None else np.eye(4),
+                material=o.material,
+                normalize=o.normalize,
+            )
+            for o in ds.objects
+        ],
+    )

@@ -5,12 +5,14 @@ Replaces the JAX package's ops/pallas/bounce_resolve.py
 ``resolve_bounce2`` (and ``resolve_bounce``; -> ``_kernel``) together with
 the env lookups between the trace and that kernel (pool.py:207-223). For
 every active lane, from the raw trace rows t, id [E+2, M] of its
-segments: light visibility (``id == emit_idx[i]``), the env radiance of
-the HDR and continuation directions, ``wavefront.resolve_tail``, then the
-pool's forward composite ``L += T * dir; T *= rate`` with the depth-cap
-term (the reference's fold seeds from its top entry, PathTrace.cu:
-1410-1415). A finished path adds ``L + le0`` to its film slot and frees
-its lane; a continuing one moves to its continuation hit. The counters
+segments (and the front's march results in ``rf``/``ri``): light
+visibility (``id == emit_idx[i]``), the env radiance of the HDR and
+continuation directions, ``wavefront.resolve_tail``, then the pool's
+forward composite ``L += T * dir; T *= rate`` with the depth-cap term
+(the reference's fold seeds from its top entry, PathTrace.cu:
+1410-1415). A finished path adds ``L + le0`` to its film slot (``le0``
+alone when its march escaped: the kill) and frees its lane; a continuing
+one moves to its continuation hit. The counters
 gain E + 2 useful rays per active lane and one finished sample per
 finished path.
 """
@@ -21,7 +23,7 @@ import torch
 
 from ..core.vecmath import V3, vstack, vwhere
 from . import kernels
-from .bounce_front import lane_front
+from .bounce_front import lane_front, lane_refr
 from .kernels import INF, LAUNCHES
 from .lanes import (C_DONE, C_RAYS, F_DIR, F_L, F_LE0, F_SRC, F_T, I_ACTIVE,
                     I_BOUNCE, I_HIT, I_SLOT, PoolState)
@@ -33,10 +35,10 @@ def resolve_bounce_plain(st: PoolState, bt: torch.Tensor, bi: torch.Tensor) -> N
     from ..integrator import wavefront
 
     sd, cfg = st.sd, st.cfg
-    state, f, _, _ = lane_front(st)
+    state, f, *_ = lane_front(st, lane_refr(st) if sd.has_refract else None)
     active = state[0]
     n_seg = sd.n_emit + 2
-    (accept, src2, out2, hit2), (dir_b, rate_b) = wavefront.resolve_step(
+    (accept, src2, out2, hit2, killed), (dir_b, rate_b) = wavefront.resolve_step(
         f, state, [bt[s] < INF for s in range(n_seg)], [bi[s] for s in range(n_seg)],
         [bt[s] for s in range(n_seg)], sd, cfg)
     fs, is_ = st.fs, st.is_
@@ -51,7 +53,7 @@ def resolve_bounce_plain(st: PoolState, bt: torch.Tensor, bi: torch.Tensor) -> N
     finished = (active & ~accept) | capped
     still = accept & ~capped
 
-    l_final = l_acc + V3(*fs[F_LE0:F_LE0 + 3])
+    l_final = vwhere(killed, 0.0, l_acc) + V3(*fs[F_LE0:F_LE0 + 3])
     st.film.index_add_(0, is_[I_SLOT][finished].long(), vstack(l_final)[finished])
     st.cnt[C_DONE] += finished.sum()
     st.cnt[C_RAYS] += active.sum() * n_seg

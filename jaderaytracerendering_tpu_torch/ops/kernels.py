@@ -1,13 +1,14 @@
 """The CUDA library of the port: its build, its ctypes argument structures,
 the checks every wrapper makes, and the launch counters.
 
-``csrc/mega.cu`` (the megakernel) and ``csrc/pool.cu`` (the pool engine's
-spawn, trace, front and resolve kernels) share the device functions of
-``csrc/path.cuh`` and build into one library. Each wrapper (ops/mega.py,
-ops/trace.py, ops/spawn_front.py, ops/bounce_front.py,
-ops/bounce_resolve.py) adds one to its entry of ``LAUNCHES`` where it
-launches its kernel and nowhere else, so a caller can show that a run
-went through the kernels.
+``csrc/mega.cu`` (the megakernel), ``csrc/pool.cu`` (the pool engine's
+spawn, trace, front and resolve kernels) and ``csrc/preview.cu`` (the
+preview kernel) share the device functions of ``csrc/path.cuh``;
+``csrc/postfx.cu`` (the display kernel) stands alone. All four build into
+one library. Each wrapper (ops/mega.py, ops/trace.py, ops/spawn_front.py,
+ops/bounce_front.py, ops/bounce_resolve.py, ops/postfx.py) adds one to
+its entry of ``LAUNCHES`` where it launches its kernel and nowhere else,
+so a caller can show that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from ..scene.scene import TABLES
 from . import build
 from .intersect import INF  # noqa: F401  (a miss's t, as the kernels write it)
 
-SOURCES = ["mega.cu", "pool.cu"]
+SOURCES = ["mega.cu", "pool.cu", "preview.cu", "postfx.cu"]
 LAUNCHES = {"mega_render": 0, "trace_segments": 0, "spawn_primary": 0,
-            "front_bounce": 0, "resolve_bounce": 0}
+            "front_bounce": 0, "resolve_bounce": 0, "render_preview_mega": 0,
+            "postfx": 0}
 MAX_STACK = 128  # the kernels' per-thread traversal stack (entries)
 
 
@@ -36,7 +38,7 @@ class SceneArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_void_p) for k in TABLES]
                 + [(k, ctypes.c_int) for k in ("env_h", "env_w", "n_emit",
                                                "n_nodes", "has_sss",
-                                               "stack_size")])
+                                               "stack_size", "has_refract")])
 
 
 class RenderArgs(ctypes.Structure):
@@ -46,20 +48,24 @@ class RenderArgs(ctypes.Structure):
         + [("sample_base", ctypes.c_uint32), ("seed", ctypes.c_uint32)] \
         + [(k, ctypes.c_float) for k in ("ndc_sx", "ndc_sy", "rr_rate",
                                          "sss_rate", "one_m_sss", "rr_over_pi",
-                                         "hdr_clamp")]
+                                         "hdr_clamp")] \
+        + [("max_refract", ctypes.c_int), ("internal_reflect_rate", ctypes.c_float)]
 
 
 class PoolArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_void_p) for k in ("fs", "is", "film", "cnt")] \
-        + [("total", ctypes.c_longlong), ("m", ctypes.c_int), ("npix", ctypes.c_int)]
+        + [("total", ctypes.c_longlong), ("m", ctypes.c_int), ("npix", ctypes.c_int)] \
+        + [(k, ctypes.c_void_p) for k in ("rf", "ri")]
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (first use, keyed by the sources' hash) and load csrc/*.cu."""
     lib = build.load_library("kernels", SOURCES)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, args in (("mega_render", [vp, vp, vp, vp]),
+                       ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
+                       ("postfx", [vp, vp, ci, ci, ci, ci, cf, ci, cf, cf, ci, vp]),
                        ("spawn_primary", [vp, vp, vp, vp, vp, vp, vp]),
                        ("front_bounce", [vp, vp, vp, vp, vp, vp, vp]),
                        ("trace_segments", [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]),
@@ -73,9 +79,6 @@ def library() -> ctypes.CDLL:
 def check_scene(sd, stack_size: int) -> None:
     if sd.device.type != "cuda":
         raise ValueError(f"scene tables on {sd.device}, kernel needs CUDA")
-    if sd.has_refract:
-        raise NotImplementedError(
-            "the CUDA kernels do not handle direct refraction (DIR_REFRACT)")
     if stack_size > MAX_STACK or sd.bvh_depth + 1 > stack_size:
         raise ValueError(f"BVH depth {sd.bvh_depth} + 1 must fit a stack of "
                          f"{stack_size} <= {MAX_STACK} entries")
@@ -100,7 +103,7 @@ def scene_args(sd, stack_size: int) -> SceneArgs:
     return SceneArgs(
         *[getattr(sd, k).data_ptr() for k in TABLES],
         int(sd.env_map.shape[0]), int(sd.env_map.shape[1]), sd.n_emit,
-        sd.n_nodes, int(sd.has_sss), stack_size)
+        sd.n_nodes, int(sd.has_sss), stack_size, int(sd.has_refract))
 
 
 def render_args(eye, rot, cfg, sample_base: int, spp: int) -> RenderArgs:
@@ -122,6 +125,8 @@ def render_args(eye, rot, cfg, sample_base: int, spp: int) -> RenderArgs:
     r.one_m_sss = 1.0 - cfg.sss_rate
     r.rr_over_pi = cfg.rr_rate / 3.1415926
     r.hdr_clamp = cfg.hdr_clamp
+    r.max_refract = int(cfg.max_refract_bounces)
+    r.internal_reflect_rate = cfg.internal_reflect_rate
     return r
 
 

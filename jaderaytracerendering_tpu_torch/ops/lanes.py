@@ -6,7 +6,12 @@ rows 0-2, ``out_dir`` 3-5, throughput ``T`` 6-8, radiance ``L`` 9-11,
 primary emission ``le0`` 12-14) and ``is_`` i32 [6, M] (``active``,
 ``hit_idx``, ``bounce``, ``slot``, ``pix``, ``smp``). Beside them: the
 film of this queue ``film`` f32 [npix, 3], and ``cnt`` i64 [4] (next
-queue sample, finished samples, useful rays, unused). Samples are queued
+queue sample, finished samples, useful rays, unused). Scenes with direct
+refraction also carry the bounce's march results from the front step to
+the resolve step: ``rf`` f32 [9, M] (exit direction rows 0-2, exit point
+3-5, rate 6-8) and ``ri`` i32 [2, M] (escaped, last triangle), written
+for the lanes that take direct refraction this bounce and zero
+elsewhere (None without refraction). Samples are queued
 as ``index = sample * npix + pixel`` for ``total`` indices; sample ids
 start at ``sample_base``. The kernels and the plain versions update the
 state in place.
@@ -28,6 +33,8 @@ from . import kernels
 F_SRC, F_DIR, F_T, F_L, F_LE0 = 0, 3, 6, 9, 12
 I_ACTIVE, I_HIT, I_BOUNCE, I_SLOT, I_PIX, I_SMP = range(6)
 C_NEXT, C_DONE, C_RAYS = range(3)
+R_DIR, R_SRC, R_RATE = 0, 3, 6      # rows of rf
+R_ESCAPED, R_LAST = 0, 1            # rows of ri
 
 
 @dataclasses.dataclass
@@ -43,6 +50,8 @@ class PoolState:
     is_: torch.Tensor
     film: torch.Tensor
     cnt: torch.Tensor
+    rf: torch.Tensor | None = None
+    ri: torch.Tensor | None = None
     _args: tuple | None = None
 
     @staticmethod
@@ -51,11 +60,15 @@ class PoolState:
         npix = cfg.width * cfg.height
         fs = torch.zeros((15, m), dtype=torch.float32, device=dev)
         fs[F_T:F_T + 3] = 1.0
+        rf = ri = None
+        if sd.has_refract:
+            rf = torch.zeros((9, m), dtype=torch.float32, device=dev)
+            ri = torch.zeros((2, m), dtype=torch.int32, device=dev)
         return PoolState(
             sd, cfg, eye, rot, npix, int(total), int(sample_base), fs,
             torch.zeros((6, m), dtype=torch.int32, device=dev),
             torch.zeros((npix, 3), dtype=torch.float32, device=dev),
-            torch.zeros((4,), dtype=torch.int64, device=dev))
+            torch.zeros((4,), dtype=torch.int64, device=dev), rf, ri)
 
     @property
     def m(self) -> int:
@@ -64,6 +77,8 @@ class PoolState:
     def clone(self) -> "PoolState":
         return dataclasses.replace(self, fs=self.fs.clone(), is_=self.is_.clone(),
                                    film=self.film.clone(), cnt=self.cnt.clone(),
+                                   rf=None if self.rf is None else self.rf.clone(),
+                                   ri=None if self.ri is None else self.ri.clone(),
                                    _args=None)
 
     def args(self):
@@ -77,12 +92,17 @@ class PoolState:
             kernels.check_tensor("is_", self.is_, torch.int32, (6, m), dev)
             kernels.check_tensor("film", self.film, torch.float32, (self.npix, 3), dev)
             kernels.check_tensor("cnt", self.cnt, torch.int64, (4,), dev)
+            if self.sd.has_refract:
+                kernels.check_tensor("rf", self.rf, torch.float32, (9, m), dev)
+                kernels.check_tensor("ri", self.ri, torch.int32, (2, m), dev)
             if not 0 < self.total < 2 ** 31:
                 raise ValueError(f"queue of {self.total} samples: want 1 .. 2^31-1")
             s = kernels.scene_args(self.sd, int(self.cfg.bvh_stack_size))
             r = kernels.render_args(self.eye, self.rot, self.cfg, self.sample_base, 0)
             q = kernels.PoolArgs(self.fs.data_ptr(), self.is_.data_ptr(),
                                  self.film.data_ptr(), self.cnt.data_ptr(),
-                                 self.total, m, self.npix)
+                                 self.total, m, self.npix,
+                                 self.rf.data_ptr() if self.sd.has_refract else None,
+                                 self.ri.data_ptr() if self.sd.has_refract else None)
             self._args = (s, r, q)
         return tuple(ctypes.byref(a) for a in self._args)

@@ -1,10 +1,13 @@
-"""Wrapper of the CUDA megakernel (csrc/mega.cu) and its plain version.
+"""Wrappers of the CUDA megakernel (csrc/mega.cu) and the preview kernel
+(csrc/preview.cu), and their plain versions.
 
 ``mega_render`` replaces the JAX package's ops/pallas/mega.py
-``render_mega`` (-> ``_mega_kernel``). It launches its kernel for a scene
-on a CUDA device and runs its plain PyTorch version for a scene on the
-CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py) counts kernel
-launches, so a caller can show that a run went through the kernels.
+``render_mega`` (-> ``_mega_kernel``), ``render_preview_mega`` its
+``render_preview_mega`` (-> ``_preview_kernel``). Each launches its kernel
+for a scene on a CUDA device and runs its plain PyTorch version for a
+scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
+counts kernel launches, so a caller can show that a run went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -52,4 +55,45 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg,
                                        kernels.ptr(out), kernels.stream(sd.device))
     kernels.check_rc(rc, "mega_render")
     LAUNCHES["mega_render"] += 1
+    return out
+
+
+def render_preview_mega_plain(sd, eye, rot, cfg, sample_base: int, spp: int,
+                              pix_offset: int = 0, n_px: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version: [3, n_px] f32, the preview radiance sums
+    over samples sample_base .. sample_base+spp-1 of pixels pix_offset ..
+    pix_offset+n_px-1 (integrator/preview.trace_preview_p with
+    ``cfg.preview_bounces`` bounces, the plain BVH walk on any device)."""
+    from ..integrator.render import render_window
+    from ..integrator.wavefront import nearest_planes_plain
+
+    n_px = cfg.width * cfg.height - pix_offset if n_px is None else n_px
+    out = torch.zeros((n_px, 3), dtype=torch.float32, device=sd.device)
+    if spp > 0:
+        render_window(sd, eye, rot, out, pix_offset, sample_base,
+                      cfg.replace(integrator="preview"), spp, query=nearest_planes_plain)
+    return out.T.contiguous()
+
+
+def render_preview_mega(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
+                        spp: int, pix_offset: int = 0, n_px: int | None = None) -> torch.Tensor:
+    """One progressive preview frame over the pixel window [pix_offset,
+    pix_offset + n_px) (default: to the end of the film) -> [3, n_px] f32
+    radiance sums of ``spp`` samples from ``sample_base``. ``eye`` [3] and
+    ``rot`` [4, 4] are the camera."""
+    npix = cfg.width * cfg.height
+    n_px = npix - pix_offset if n_px is None else int(n_px)
+    if not (0 <= pix_offset and 0 <= n_px and pix_offset + n_px <= npix):
+        raise ValueError(f"pixel window [{pix_offset}, {pix_offset + n_px}) outside "
+                         f"the film's {npix} pixels")
+    if sd.device.type == "cpu":
+        return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, pix_offset, n_px)
+    s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
+    r = kernels.render_args(eye, rot, cfg, sample_base, spp)
+    out = torch.empty((3, n_px), dtype=torch.float32, device=sd.device)
+    rc = kernels.library().preview_render(ctypes.byref(s), ctypes.byref(r), int(pix_offset),
+                                          n_px, int(cfg.preview_bounces), kernels.ptr(out),
+                                          kernels.stream(sd.device))
+    kernels.check_rc(rc, "render_preview_mega")
+    LAUNCHES["render_preview_mega"] += 1
     return out

@@ -111,11 +111,23 @@ class SceneData:
             self, **{k: getattr(self, k).to(device) for k in TABLES})
 
 
-def scene_from_numpy(fields: dict, device="cpu") -> SceneData:
+def _check_device(device) -> torch.device:
+    """The scene's device; CUDA that is missing is an error, never a quiet
+    fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available for the scene tables "
+                           "(pass device='cpu' to build them on the CPU)")
+    return device
+
+
+def scene_from_numpy(fields: dict, device="cuda") -> SceneData:
     """SceneData from a dict of NumPy arrays named as ``TABLES`` plus
     ``leaf_size`` (extra keys ignored) — e.g. the fields of the JAX
     package's ``assemble(..., xp=np)``. The other static facts are
-    recomputed from the tables."""
+    recomputed from the tables. The tables go to the card unless the
+    caller asks for another device."""
+    device = _check_device(device)
     t = {k: torch.tensor(np.ascontiguousarray(np.asarray(fields[k])),
                          dtype=dt, device=device) for k, dt in TABLES.items()}
     refract = np.asarray(fields["mat_refract"])
@@ -216,7 +228,9 @@ def assemble_numpy(objects: List[SceneObject], env_map: np.ndarray,
 
 def assemble(objects: List[SceneObject], env_map: np.ndarray,
              leaf_size: int = 8, bvh_method: str = "sah",
-             device="cpu") -> SceneData:
-    """Build the scene on the host and place its tables on ``device``."""
+             device="cuda") -> SceneData:
+    """Build the scene on the host and place its tables on ``device`` (the
+    card unless the caller asks for the CPU; no CUDA device is an error)."""
+    _check_device(device)
     return scene_from_numpy(assemble_numpy(objects, env_map, leaf_size,
                                            bvh_method), device)

@@ -9,7 +9,7 @@ pixel atol = 1e-4 * max, rtol = 1e-3 (the kernels are built with
 --fmad=false and match the plain versions to a few ulps; the pool's film
 adds are float atomics, so its sums within a pixel change order); lane
 integers and counters of one pool step exact, its floats within 1e-5 of
-their max."""
+their max; display u8 within 1."""
 
 import numpy as np
 import pytest
@@ -20,7 +20,7 @@ from jaderaytracerendering_tpu_torch.integrator import pool as tpool
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo
 from jaderaytracerendering_tpu_torch.ops import (bounce_front, bounce_resolve, kernels,
-                                                 mega as megak, spawn_front, trace)
+                                                 mega as megak, postfx, spawn_front, trace)
 from jaderaytracerendering_tpu_torch.ops.lanes import (C_RAYS, F_DIR, F_L, F_LE0, F_SRC, F_T,
                                                        PoolState)
 from jaderaytracerendering_tpu_torch.scene.scene import assemble
@@ -183,3 +183,127 @@ def test_render_film_mega_on_cuda_uses_the_kernel(jade_cuda):
                                             mega_spp_batch=2), stats=stats)
     assert kernels.LAUNCHES["mega_render"] == 2 and film.count == 3
     assert bool(torch.isfinite(film.accum).all()) and stats["rays"] > 0
+
+
+@pytest.fixture(scope="module")
+def glass_cuda(jade_cuda):
+    """The jade scene with the statue made DIR_REFRACT (index 1.5, rate 0.9)."""
+    import dataclasses
+
+    from jaderaytracerendering_tpu_torch.scene import material
+
+    ds = demo.jade_scene(n_buddha_tris=2000, env_shape=(32, 64))
+    ds.camera.r = 2.0
+    glass = dataclasses.replace(ds.objects[0].material, refract_mode=material.DIR_REFRACT,
+                                refract_index=1.5, refract_rate=(0.9, 0.9, 0.9))
+    ds.objects[0] = dataclasses.replace(ds.objects[0], material=glass)
+    sd = assemble(ds.objects, ds.env_map, device="cuda")
+    assert sd.has_refract
+    return ds, sd
+
+
+def test_mega_render_refract_kernel_matches_plain(glass_cuda):
+    ds, sd = glass_cuda
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5, max_refract_bounces=16)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    before = kernels.LAUNCHES["mega_render"]
+    k = megak.mega_render(sd, eye, rot, cfg, 1, cfg.spp)
+    assert kernels.LAUNCHES["mega_render"] == before + 1
+    p = megak.mega_render_plain(sd, eye, rot, cfg, 1, cfg.spp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k[:3], p[:3], rtol=1e-3, atol=1e-4 * float(p[:3].abs().max()))
+    assert torch.equal(k[3], p[3])
+
+
+def test_pool_refract_kernels_match_plain(glass_cuda):
+    """One pool iteration on a refraction scene: the front kernel's segments
+    and march rows, then the resolve kernel, against the plain versions."""
+    ds, sd = glass_cuda
+    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=5, max_refract_bounces=16)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    st = PoolState.create(sd, cfg, eye, rot, 1024, 32 * 32 * 4, 0)
+    tpool.run_pool(st, max_iters=3)
+    o, d, x = bounce_front.front_bounce(st)
+    rf, ri = st.rf.clone(), st.ri.clone()
+    assert bool((ri[1] != 0).any())  # some lanes take direct refraction
+    op, dp, xp = bounce_front.front_bounce_plain(st)
+    assert torch.equal(x, xp) and torch.equal(ri, st.ri)
+    torch.testing.assert_close(o, op, rtol=0, atol=1e-5 * float(op.abs().max()))
+    torch.testing.assert_close(d, dp, rtol=0, atol=1e-5 * float(dp.abs().max()))
+    torch.testing.assert_close(rf, st.rf, rtol=0, atol=1e-5 * float(st.rf.abs().max()))
+    bt, bi = trace.trace_segments(sd, o, d, x, sd.n_emit)
+    k, p = st.clone(), st.clone()
+    bounce_resolve.resolve_bounce(k, bt, bi)
+    bounce_resolve.resolve_bounce_plain(p, bt, bi)
+    _same_state(k, p)
+
+
+def test_refract_pool_equals_mega_on_cuda(glass_cuda):
+    ds, sd = glass_cuda
+    cfg = RenderConfig(width=32, height=32, spp=3, max_depth=5, max_refract_bounces=16)
+    s_p, s_m = {}, {}
+    a = tpool.render_film_pool(sd, ds.camera, cfg, stats=s_p, pool_m=700)
+    b = trender.render_film(sd, ds.camera, cfg, stats=s_m)
+    assert s_p["rays"] == s_m["rays"]
+    torch.testing.assert_close(a.accum, b.accum, rtol=1e-3,
+                               atol=1e-4 * float(b.accum.abs().max()))
+
+
+def test_preview_kernel_matches_plain(jade_cuda):
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=32, height=32, spp=2, integrator="preview")
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    for window in ((0, None), (256, 300)):
+        before = kernels.LAUNCHES["render_preview_mega"]
+        k = megak.render_preview_mega(sd, eye, rot, cfg, 5, cfg.spp, *window)
+        assert kernels.LAUNCHES["render_preview_mega"] == before + 1
+        p = megak.render_preview_mega_plain(sd, eye, rot, cfg, 5, cfg.spp, *window)
+        torch.cuda.synchronize()
+        assert k.shape == p.shape == (3, window[1] or 32 * 32)
+        torch.testing.assert_close(k, p, rtol=1e-3, atol=1e-4 * float(p.abs().max()))
+
+
+def test_preview_banded_rotation_on_cuda(jade_cuda):
+    """Four banded frames through the preview kernel equal one full frame
+    through it, bit for bit; each frame's display is postfx launches."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=32, height=32, spp=1, integrator="preview", preview_bands=4)
+    full = trender.render_film_preview(sd, ds.camera, cfg.replace(preview_bands=1))
+    kernels.reset_launches()
+    film = disp = None
+    for f in range(4):
+        film, disp = trender.render_film_preview(sd, ds.camera, cfg, film=film, display=True,
+                                                 frame_idx=f)
+    assert kernels.LAUNCHES["render_preview_mega"] == 4
+    assert kernels.LAUNCHES["postfx"] == 2 + 2 + 2 + 1  # the last frame has one count
+    assert torch.equal(film.accum, full.accum) and disp.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("mode", ["aces", "reinhard", "none"])
+def test_postfx_kernel_matches_plain(jade_cuda, mode):
+    g = np.random.default_rng(3)
+    accum = torch.tensor(g.uniform(-1, 60, (96, 80, 3)).astype(np.float32), device="cuda")
+    for flip, span in ((False, None), (True, None), (True, (100, 5000))):
+        before = kernels.LAUNCHES["postfx"]
+        k = postfx.postfx(accum, 7, mode, flip=flip, span=span)
+        assert kernels.LAUNCHES["postfx"] == before + 1
+        p = postfx.postfx_plain(accum, 7, mode, flip=flip, span=span)
+        assert int((k.int() - p.int()).abs().max()) <= 1
+
+
+def test_banded_display_kernel_matches_plain(jade_cuda):
+    """The banded display (two postfx launches over two spans, two counts)
+    of each frame of a rotation against the plain postfx band by band."""
+    g = np.random.default_rng(4)
+    accum = torch.tensor(g.uniform(0, 9, (64, 48, 3)).astype(np.float32), device="cuda")
+    band_px = 64 * 48 // 4
+    for f in range(8):
+        kernels.reset_launches()
+        k = trender.display_banded(accum, f, 4, 2, "aces")
+        assert kernels.LAUNCHES["postfx"] == (1 if f % 4 == 3 else 2)
+        p = torch.empty_like(k)
+        for b in range(4):
+            n = (f // 4 + int(b <= f % 4)) * 2
+            postfx.postfx_plain(accum, n, "aces", flip=True,
+                                span=(b * band_px, (b + 1) * band_px), out=p)
+        assert int((k.int() - p.int()).abs().max()) <= 1

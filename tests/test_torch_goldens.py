@@ -30,7 +30,7 @@ def test_pool_reproduces_jade_golden(name, size, lanes):
 
     ds = demo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     ds.camera.r = 2.0
-    st = tscene.assemble(ds.objects, ds.env_map)
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
     cfg = RenderConfig(width=size, height=size, spp=4, spp_batch=4, max_depth=5,
                        seed=5, engine="pool")
     want = np.load(os.path.join(GOLDENS, name))

@@ -8,8 +8,6 @@ tests/test_integrator.py:56-65 (NumPy vs XLA): libm ulps (exp, cos, sin,
 atan2) differ between the backends and are carried through the bounces.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +21,7 @@ from jaderaytracerendering_tpu.utils.config import RenderConfig as JConfig
 from jaderaytracerendering_tpu_torch.core.film import Film
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo as tdemo
-from jaderaytracerendering_tpu_torch.scene import material, scene as tscene
+from jaderaytracerendering_tpu_torch.scene import scene as tscene
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig as TConfig
 
 torch.set_num_threads(1)
@@ -46,7 +44,7 @@ def _films(name, **cfg_kw):
                        jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"))
     jcfg = JConfig(**SIZE, **cfg_kw, engine="scan", traversal="bvh")
     a = np.asarray(jrender.render_film(sdj, j.camera, jcfg).mean())
-    st = tscene.assemble(t.objects, t.env_map)
+    st = tscene.assemble(t.objects, t.env_map, device="cpu")
     stats = {}
     film = trender.render_film(st, t.camera, TConfig(**SIZE, **cfg_kw, engine="scan"),
                                stats=stats)
@@ -73,7 +71,7 @@ def test_gl_jitter_and_seed_match_jax():
 
 def test_film_resume_equals_one_run():
     ds = tdemo.tiny_scene()
-    st = tscene.assemble(ds.objects, ds.env_map)
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
     cfg = TConfig(**SIZE, engine="scan")
     f1 = trender.render_film(st, ds.camera, cfg)
     f2 = trender.render_film(st, ds.camera, cfg, film=f1)
@@ -96,24 +94,29 @@ def test_film_file_crosses_packages(tmp_path):
     np.testing.assert_array_equal(Film.load(path).accum.numpy(), film.accum.numpy())
 
 
-def test_refract_scene_raises():
-    ds = tdemo.jade_scene(n_buddha_tris=100, env_shape=(8, 16))
-    ds.objects[0] = dataclasses.replace(
-        ds.objects[0], material=dataclasses.replace(
-            ds.objects[0].material, refract_mode=material.DIR_REFRACT))
-    st = tscene.assemble(ds.objects, ds.env_map)
-    assert st.has_refract
-    for engine in ("scan", "mega", "pool"):
-        with pytest.raises(NotImplementedError):
-            trender.render_film(st, ds.camera, TConfig(**SIZE, engine=engine))
-
-
 def test_unported_engines_raise():
-    """The preview integrator is not ported and raises; the pool engine
-    is ported (tests/test_torch_pool.py) and renders."""
+    """Every engine and integrator of the JAX package is ported: the pool
+    engine (tests/test_torch_pool.py) and the preview integrator
+    (tests/test_torch_preview.py) render; a name the port does not know
+    raises."""
     ds = tdemo.tiny_scene()
-    st = tscene.assemble(ds.objects, ds.env_map)
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
     film = trender.render_film(st, ds.camera, TConfig(**SIZE, engine="pool"))
     assert film.count == SIZE["spp"] and bool(torch.isfinite(film.accum).all())
-    with pytest.raises(NotImplementedError):
-        trender.render_film(st, ds.camera, TConfig(**SIZE, integrator="preview"))
+    film = trender.render_film(st, ds.camera, TConfig(**SIZE, integrator="preview"))
+    assert film.count == SIZE["spp"] and float(film.accum.sum()) > 0
+    for bad in (dict(engine="wavefront"), dict(integrator="bdpt")):
+        with pytest.raises(ValueError):
+            trender.render_film(st, ds.camera, TConfig(**SIZE, **bad))
+
+
+def test_assemble_defaults_to_cuda(monkeypatch):
+    """The scene goes to the card unless the caller asks for the CPU; no
+    CUDA device is an error, never a quiet fall back."""
+    ds = tdemo.tiny_scene()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tscene.assemble(ds.objects, ds.env_map)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tscene.scene_from_numpy(tscene.assemble_numpy(ds.objects, ds.env_map))
+    assert tscene.assemble(ds.objects, ds.env_map, device="cpu").device.type == "cpu"

@@ -37,7 +37,7 @@ def test_mega_cornell_matches_jax_mega():
     a = np.asarray(jmega.render_film_mega(
         sdj, ds.camera, JConfig(**SIZE, traversal="sweep")).mean())
     t = tdemo.cornell_scene()
-    st = tscene.assemble(t.objects, t.env_map)
+    st = tscene.assemble(t.objects, t.env_map, device="cpu")
     kernels.reset_launches()
     film = trender.render_film(st, t.camera, TConfig(**SIZE, engine="mega"))
     assert set(kernels.LAUNCHES.values()) == {0}
@@ -53,7 +53,7 @@ def test_mega_batches_equal_scan(batch):
     useful-ray count equal the scan engine's."""
     ds = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     ds.camera.r = 2.0
-    st = tscene.assemble(ds.objects, ds.env_map)
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
     cfg = TConfig(**SIZE, mega_spp_batch=batch)
     s_mega, s_scan = {}, {}
     a = trender.render_film(st, ds.camera, cfg.replace(engine="mega"), stats=s_mega)
@@ -66,7 +66,7 @@ def test_mega_batches_equal_scan(batch):
 
 def test_wrapper_rejects_a_non_cuda_device():
     ds = tdemo.tiny_scene()
-    st = tscene.assemble(ds.objects, ds.env_map).to("meta")
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu").to("meta")
     eye, rot = torch.zeros(3), torch.eye(4)
     with pytest.raises(ValueError):
         megak.mega_render(st, eye, rot, TConfig(**SIZE), 0, 1)

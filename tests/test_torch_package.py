@@ -56,3 +56,18 @@ def test_sources_never_import_jax():
     offenders = [str(p) for p in PKG.rglob("*.py")
                  if "import jax" in p.read_text() or "from jax" in p.read_text()]
     assert offenders == []
+
+
+def test_preview_cli_refuses_missing_cuda(tmp_path):
+    """The preview CLI runs on the card unless --device cpu asks for the
+    CPU; a missing GPU is an error, not a fall back."""
+    code = """
+import torch
+torch.cuda.is_available = lambda: False
+from jaderaytracerendering_tpu_torch.cli import preview
+preview.main(["--scene", "tiny", "--width", "4", "--height", "4", "--frames", "1"])
+"""
+    res = _run(code, tmp_path)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert not list(tmp_path.glob("*.bmp"))

@@ -56,7 +56,7 @@ def jade():
     t = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     j.camera.r = t.camera.r = 2.0
     return (j, jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            t, tscene.assemble(t.objects, t.env_map))
+            t, tscene.assemble(t.objects, t.env_map, device="cpu"))
 
 
 def _state(st_scene, cam, total):
@@ -275,7 +275,7 @@ def test_stacked_trace_ties_go_to_the_minimum_id():
     # the second object repeats 15 triangles exactly: every tie has a twin
     st = tscene.assemble([tscene.SceneObject(mesh(slice(0, 40)), material.Material()),
                           tscene.SceneObject(mesh(slice(0, 15)), material.Material())],
-                         np.ones((4, 8, 3), np.float32))
+                         np.ones((4, 8, 3), np.float32), device="cpu")
     centroid = (p1[:15] + p2[:15] + p3[:15]) / 3.0
     o = np.repeat(np.array([[0.0, 0.0, 3.0]], np.float32), 15, axis=0)
     d = (centroid - o).astype(np.float32)

@@ -34,7 +34,8 @@ def test_area_cdf_pick_equals_fast_tables(n_tris):
     ds = jdemo.jade_scene(n_buddha_tris=n_tris, env_shape=(8, 16))
     sj = jassemble(ds.objects, ds.env_map, xp=np, bvh_backend="numpy")
     assert sj.sss_nb > 0
-    st = tscene.scene_from_numpy({k: getattr(sj, k) for k in [*tscene.TABLES, "leaf_size"]})
+    st = tscene.scene_from_numpy({k: getattr(sj, k) for k in [*tscene.TABLES, "leaf_size"]},
+                                 device="cpu")
     g = np.random.default_rng(n_tris)
     u = g.uniform(size=20000).astype(np.float32)
     u[:4] = [0.0, np.nextafter(np.float32(1), np.float32(0)), 0.5, 1e-7]

@@ -31,7 +31,7 @@ def _pair(name):
     j = getattr(jdemo, f"{name}_scene")(**kw)
     t = getattr(tdemo, f"{name}_scene")(**kw)
     return (jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            tscene.assemble(t.objects, t.env_map))
+            tscene.assemble(t.objects, t.env_map, device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -50,7 +50,7 @@ def test_tables_equal(name):
 def test_scene_from_numpy_round_trip(name):
     sj, st = _pair(name)
     fields = {f.name: getattr(sj, f.name) for f in dataclasses.fields(sj)}
-    back = tscene.scene_from_numpy(fields)
+    back = tscene.scene_from_numpy(fields, device="cpu")
     for k in tscene.TABLES:
         assert torch.equal(getattr(back, k), getattr(st, k)), k
     for k in STATIC:

@@ -49,7 +49,7 @@ def jade():
     j = jdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     t = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     return (jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            tscene.assemble(t.objects, t.env_map))
+            tscene.assemble(t.objects, t.env_map, device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -102,7 +102,7 @@ def test_ties_go_to_the_minimum_id():
 
     objs = [tscene.SceneObject(mesh(slice(0, 60)), material.Material()),
             tscene.SceneObject(mesh(dup), material.Material())]
-    st = tscene.assemble(objs, np.ones((4, 8, 3), np.float32))
+    st = tscene.assemble(objs, np.ones((4, 8, 3), np.float32), device="cpu")
     centroid = (p1[dup] + p2[dup] + p3[dup]) / 3.0
     o = np.repeat(np.array([[0.0, 0.0, 3.0]], np.float32), 20, axis=0)
     d = (centroid - o).astype(np.float32)
