@@ -16,9 +16,9 @@ turns: mega, then the pool sizes up and back down, ``--reps`` rounds.
 each other source directory given, e.g. an older checkout's ``csrc``;
 each needs this tree's C interface. Each build's ``mega_render`` is
 timed with CUDA events, one launch each in turns with this tree's, and
-must give this tree's output bit for bit. Prints one line per
-configuration and, last, one JSON object. Needs a CUDA device; it does
-not fall back to the CPU.
+must give this tree's output bit for bit; its ptxas registers, stack and
+spills are printed. Prints one line per configuration and, last, one JSON
+object. Needs a CUDA device; it does not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -58,21 +58,26 @@ def _trace(render, sd, cam, cfg) -> dict:
                 kernels_ms=top)
 
 
-def _registers(log_path) -> int | None:
-    """Registers of ``mega_render_kernel`` in a build's ptxas log (its
-    instance without direct refraction where the kernel is a template)."""
+def _ptxas(log_path) -> dict:
+    """Registers, stack frame and spill bytes of ``mega_render_kernel`` in
+    a build's ptxas log (its instance without direct refraction)."""
     lines = log_path.read_text().splitlines()
+    out = {}
     for i, line in enumerate(lines):
         if "Compiling entry" in line and "mega_render_kernel" in line and "ILb1E" not in line:
             for nxt in lines[i + 1:i + 6]:
+                if "stack frame" in nxt:
+                    nums = [int(w) for w in nxt.replace(",", " ").split() if w.isdigit()]
+                    out.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
                 if "Used" in nxt:
-                    return int(nxt.split("Used")[1].split("registers")[0])
-    return None
+                    out["registers"] = int(nxt.split("Used")[1].split("registers")[0])
+                    return out
+    return out
 
 
 def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     """``mega_render`` at the main path from this tree's library and the
-    other builds, one launch each in turns -> rows (ms, registers)."""
+    other builds, one launch each in turns -> rows (ms, ptxas figures)."""
     import ctypes
     import pathlib
 
@@ -89,15 +94,17 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     for k, d in enumerate(dirs):
         src_dir = pathlib.Path(d).resolve()
         lib = build.load_library(f"mega-other{k}", ["mega.cu"], src_dir)
-        lib.mega_render.argtypes = [ctypes.c_void_p] * 4
+        lib.mega_render.argtypes = [ctypes.c_void_p] * 5
         lib.mega_render.restype = ctypes.c_int
         builds[d] = (lib, build.library_path(f"mega-other{k}", ["mega.cu"], src_dir))
 
     def launch(lib):
         out = torch.empty((4, cfg.width * cfg.height), dtype=torch.float32,
                           device=sd.device)
+        counter = torch.zeros(1, dtype=torch.int32, device=sd.device)
         kernels.check_rc(lib.mega_render(ctypes.byref(s), ctypes.byref(r), kernels.ptr(out),
-                                         kernels.stream(sd.device)), "mega_render")
+                                         kernels.ptr(counter), kernels.stream(sd.device)),
+                         "mega_render")
         return out
 
     ref = launch(builds["this"][0])
@@ -119,12 +126,12 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     rows = []
     for n in names:
         ts = sorted(times[n])
-        row = dict(build=n, registers=_registers(builds[n][1].with_suffix(".log")),
+        row = dict(build=n, **_ptxas(builds[n][1].with_suffix(".log")),
                    median_ms=ts[len(ts) // 2], min_ms=ts[0], max_ms=ts[-1], runs=len(ts))
         rows.append(row)
-        print(f"mega_render {n}: {row['registers']} registers, median {row['median_ms']:.3f} "
-              f"ms ({row['min_ms']:.3f}-{row['max_ms']:.3f}, {row['runs']} launches), "
-              f"output equal to this tree's [{card}]", flush=True)
+        print(f"mega_render {n}: ptxas {_ptxas(builds[n][1].with_suffix('.log'))}, median "
+              f"{row['median_ms']:.3f} ms ({row['min_ms']:.3f}-{row['max_ms']:.3f}, "
+              f"{row['runs']} launches), output equal to this tree's [{card}]", flush=True)
     return rows
 
 

@@ -10,6 +10,11 @@ Division by a constant goes through ``div``: torch's CUDA ``div`` turns
 a Python-scalar divisor into a multiplication by its reciprocal, while
 JAX, torch on the CPU and the kernel divide; a 0-d tensor divisor on the
 same device keeps every one of them a true float32 division.
+
+Square roots go through ``sqrt``: torch's CPU ``sqrt`` of float32 is not
+correctly rounded on every x86 build (many values an ulp off, at every
+ATen CPU capability), while NumPy, XLA and the kernels' ``sqrtf`` round
+correctly.
 """
 
 from __future__ import annotations
@@ -61,8 +66,15 @@ def vcross(a: V3, b: V3) -> V3:
               a.x * b.y - a.y * b.x)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root on every device: the float64 root of
+    a float32 value rounds to the float32 root exactly (53 >= 2 * 24 + 2,
+    so the double rounding is innocuous)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def vnorm(v: V3) -> torch.Tensor:
-    return torch.sqrt(vdot(v, v))
+    return sqrt(vdot(v, v))
 
 
 def vnormalize(v: V3, eps: float = 0.0) -> V3:
@@ -71,7 +83,7 @@ def vnormalize(v: V3, eps: float = 0.0) -> V3:
     n2 = vdot(v, v)
     if eps:
         n2 = torch.clamp_min(n2, eps)
-    return v * torch.reciprocal(torch.sqrt(n2))
+    return v * torch.reciprocal(sqrt(n2))
 
 
 def div(x: torch.Tensor, c: float) -> torch.Tensor:

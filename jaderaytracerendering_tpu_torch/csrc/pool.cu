@@ -23,8 +23,12 @@
 // excl i32 [S, M], S = E lights + HDR + continuation.
 //
 // What bounds them on this card: trace_segments (and the primary trace
-// inside spawn_primary) by divergent BVH traversal, as the megakernel,
-// plus one memory round trip of the segments per bounce; front_bounce and
+// inside spawn_primary) by divergent BVH traversal, as the megakernel
+// (the packed walk of path.cuh: 16-byte record loads, a shared-memory
+// stack), plus one memory round trip of the segments per bounce. Its grid
+// is one thread per (segment, lane) item: a persistent grid whose warps
+// take 32 items at a time from a counter (Aila & Laine) measured 37-42%
+// slower on the H100 at the main path's shape (PERF.md). front_bounce and
 // resolve_bounce by their bytes (state, segments and trace rows, tens of
 // bytes per lane) and by the scattered scene-table loads. The first design
 // is one thread per lane (per lane and segment for the trace), no
@@ -270,6 +274,7 @@ front_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, float* __restrict__ s
 }
 
 // ---- trace: nearest hit per (segment, lane); one segment any-hit --------
+// One thread per item g = segment * M + lane.
 __global__ void __launch_bounds__(LANE_THREADS)
 trace_segments_kernel(SceneArgs s, const float* __restrict__ o, const float* __restrict__ d,
                       const int* __restrict__ x, int n_seg, int m, int anyhit_seg,
@@ -278,9 +283,13 @@ trace_segments_kernel(SceneArgs s, const float* __restrict__ o, const float* __r
   if (g >= (long long)n_seg * m) return;
   int seg = (int)(g / m);
   int i = (int)(g - (long long)seg * m);
-  float t;
-  int idx;
-  trace(s, row3(o, 3 * seg, m, i), row3(d, 3 * seg, m, i), x[g], seg == anyhit_seg, t, idx);
+  float t = INF_T;
+  int idx = 0;
+  V dir = row3(d, 3 * seg, m, i);
+  // a zero ray (a masked segment: over half the items at the pool's main
+  // path) is a miss; its origin and exclusion are not read
+  if (dir.x != 0.0f || dir.y != 0.0f || dir.z != 0.0f)
+    trace(s, row3(o, 3 * seg, m, i), dir, x[g], seg == anyhit_seg, t, idx);
   bt[g] = t;
   bi[g] = idx;
 }
@@ -372,7 +381,10 @@ int spawn_primary(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, in
   spawn_offsets_kernel<<<1, SCAN_THREADS, 0, st>>>(block_cnt, nb, q->cnt, q->total, base);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  spawn_primary_kernel<<<nb, SPAWN_THREADS, 0, st>>>(*s, *r, *q, block_cnt, base, aux);
+  size_t smem = walk_smem_bytes(*s, SPAWN_THREADS);
+  rc = smem_limit(spawn_primary_kernel, smem);
+  if (rc) return rc;
+  spawn_primary_kernel<<<nb, SPAWN_THREADS, smem, st>>>(*s, *r, *q, block_cnt, base, aux);
   return (int)cudaGetLastError();
 }
 
@@ -382,9 +394,13 @@ int front_bounce(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, flo
                  float* seg_d, int* seg_x, void* stream) {
   int blocks = (q->m + LANE_THREADS - 1) / LANE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  if (s->has_refract)
-    front_bounce_kernel<true><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, seg_o, seg_d, seg_x);
-  else
+  if (s->has_refract) {  // the march walks; the false instance does not
+    size_t smem = walk_smem_bytes(*s, LANE_THREADS);
+    int rc = smem_limit(front_bounce_kernel<true>, smem);
+    if (rc) return rc;
+    front_bounce_kernel<true><<<blocks, LANE_THREADS, smem, st>>>(*s, *r, *q, seg_o, seg_d,
+                                                                   seg_x);
+  } else
     front_bounce_kernel<false><<<blocks, LANE_THREADS, 0, st>>>(*s, *r, *q, seg_o, seg_d, seg_x);
   return (int)cudaGetLastError();
 }
@@ -396,7 +412,10 @@ int trace_segments(const SceneArgs* s, const float* o, const float* d, const int
   long long n = (long long)n_seg * m;
   long long blocks = (n + LANE_THREADS - 1) / LANE_THREADS;
   if (blocks == 0) return 0;
-  trace_segments_kernel<<<(unsigned)blocks, LANE_THREADS, 0, (cudaStream_t)stream>>>(
+  size_t smem = walk_smem_bytes(*s, LANE_THREADS);
+  int rc = smem_limit(trace_segments_kernel, smem);
+  if (rc) return rc;
+  trace_segments_kernel<<<(unsigned)blocks, LANE_THREADS, smem, (cudaStream_t)stream>>>(
       *s, o, d, x, n_seg, m, anyhit_seg, bt, bi);
   return (int)cudaGetLastError();
 }

@@ -12,10 +12,11 @@
 // emission and sky on the way, no NEE. Only the radiance rows of the TPU
 // kernel's [8, Mp] output mean something; this one writes [3, n_px].
 //
-// The design is the megakernel's (mega.cu): one thread per pixel, a loop
-// over its samples (ascending, the plain version's order) and bounces,
-// the device functions of path.cuh (camera_dir, bvh_nearest_hit,
-// env_sample, uniform_sphere), plain global loads of the scene tables.
+// The design is the first megakernel's (not the redesigned mega.cu's
+// sliced state machine): one thread per pixel, a loop over its samples
+// (ascending, the plain version's order) and bounces,
+// the device functions of path.cuh (camera_dir, bvh_nearest_hit and its
+// packed walk tables and shared-memory stack, env_sample, uniform_sphere).
 // What bounds it on this card: divergent BVH traversal (up to 3 walks a
 // sample), as the megakernel; its bytes (the scene tables once, 12 bytes
 // out per pixel) are far below that. None of the TPU mechanics (one-hot
@@ -93,8 +94,11 @@ int preview_render(const SceneArgs* s, const RenderArgs* r, int pix_offset, int 
   int threads = 128;
   int blocks = (n_px + threads - 1) / threads;
   if (blocks == 0) return 0;
-  preview_render_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*s, *r, pix_offset, n_px,
-                                                                      max_bounce, out);
+  size_t smem = walk_smem_bytes(*s, threads);
+  int rc = smem_limit(preview_render_kernel, smem);
+  if (rc) return rc;
+  preview_render_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*s, *r, pix_offset,
+                                                                         n_px, max_bounce, out);
   return (int)cudaGetLastError();
 }
 

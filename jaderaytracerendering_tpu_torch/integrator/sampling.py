@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import V3, div, vdot, vwhere
+from ..core.vecmath import V3, div, sqrt, vdot, vwhere
 
 PI = 3.1415926  # the reference's PI (PathTrace.cu:36)
 TWO_PI = 2.0 * PI
@@ -22,7 +22,7 @@ EIGHT_PI = 8.0 * PI
 def uniform_sphere_p(u_cos, u_phi) -> V3:
     """Unit direction from two U[0,1) draws (PathTrace.cu:968-971)."""
     cos_t = 2.0 * (u_cos - 0.5)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     phi = TWO_PI * u_phi
     return V3(sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t)
 
@@ -79,7 +79,7 @@ def refract_dir_p(d_in: V3, normal: V3, eta):
     cosi = torch.abs(cosi)
     cost2 = 1.0 - eta * eta * (1.0 - cosi * cosi)
     full_reflex = cost2 <= 0
-    safe = torch.sqrt(torch.clamp_min(cost2, 0.0))
+    safe = sqrt(torch.clamp_min(cost2, 0.0))
     refracted = d_in * eta + n * (eta * cosi - safe)
     return vwhere(full_reflex, d_in, refracted), full_reflex
 

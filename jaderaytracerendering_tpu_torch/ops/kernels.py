@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from ..scene.scene import TABLES
+from ..scene.scene import PACKED, TABLES
 from . import build
 from .intersect import INF  # noqa: F401  (a miss's t, as the kernels write it)
 
@@ -26,7 +26,7 @@ SOURCES = ["mega.cu", "pool.cu", "preview.cu", "postfx.cu"]
 LAUNCHES = {"mega_render": 0, "trace_segments": 0, "spawn_primary": 0,
             "front_bounce": 0, "resolve_bounce": 0, "render_preview_mega": 0,
             "postfx": 0}
-MAX_STACK = 128  # the kernels' per-thread traversal stack (entries)
+MAX_STACK = 128  # the largest cfg.bvh_stack_size (entries) the kernels accept
 
 
 def reset_launches() -> None:
@@ -35,10 +35,11 @@ def reset_launches() -> None:
 
 
 class SceneArgs(ctypes.Structure):
-    _fields_ = ([(k, ctypes.c_void_p) for k in TABLES]
+    _fields_ = ([(k, ctypes.c_void_p) for k in (*TABLES, *PACKED)]
                 + [(k, ctypes.c_int) for k in ("env_h", "env_w", "n_emit",
                                                "n_nodes", "has_sss",
-                                               "stack_size", "has_refract")])
+                                               "stack_size", "has_refract",
+                                               "bvh_root")])
 
 
 class RenderArgs(ctypes.Structure):
@@ -63,7 +64,7 @@ def library() -> ctypes.CDLL:
     """Build (first use, keyed by the sources' hash) and load csrc/*.cu."""
     lib = build.load_library("kernels", SOURCES)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, args in (("mega_render", [vp, vp, vp, vp]),
+    for name, args in (("mega_render", [vp, vp, vp, vp, vp]),
                        ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
                        ("postfx", [vp, vp, ci, ci, ci, ci, cf, ci, cf, cf, ci, vp]),
                        ("spawn_primary", [vp, vp, vp, vp, vp, vp, vp]),
@@ -77,12 +78,19 @@ def library() -> ctypes.CDLL:
 
 
 def check_scene(sd, stack_size: int) -> None:
-    if sd.device.type != "cuda":
-        raise ValueError(f"scene tables on {sd.device}, kernel needs CUDA")
+    """The scene a kernel can walk: its packed walk tables present, on
+    CUDA, a ``stack_size`` (cfg.bvh_stack_size) of at most ``MAX_STACK``
+    entries that holds the tree's depth + 1."""
+    missing = [k for k in PACKED if getattr(sd, k) is None]
+    if missing:
+        raise ValueError(f"scene has no packed walk tables {missing}: build it with "
+                         f"scene.assemble or scene.scene_from_numpy")
     if stack_size > MAX_STACK or sd.bvh_depth + 1 > stack_size:
         raise ValueError(f"BVH depth {sd.bvh_depth} + 1 must fit a stack of "
                          f"{stack_size} <= {MAX_STACK} entries")
-    for k, dt in TABLES.items():
+    if sd.device.type != "cuda":
+        raise ValueError(f"scene tables on {sd.device}, kernel needs CUDA")
+    for k, dt in (*TABLES.items(), *PACKED.items()):
         t = getattr(sd, k)
         if t.device != sd.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"scene table {k}: want contiguous {dt} on "
@@ -98,12 +106,16 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def scene_args(sd, stack_size: int) -> SceneArgs:
-    """Checked ctypes view of the scene's tables."""
+    """Checked ctypes view of the scene's tables. The kernels' walk stack
+    holds depth + 1 entries, all a walk can occupy (``accel.bvh.tree_depth``),
+    so a ``stack_size`` that passes the check never drops a child in the
+    kernels or in the plain walk."""
     check_scene(sd, stack_size)
     return SceneArgs(
-        *[getattr(sd, k).data_ptr() for k in TABLES],
+        *[getattr(sd, k).data_ptr() for k in (*TABLES, *PACKED)],
         int(sd.env_map.shape[0]), int(sd.env_map.shape[1]), sd.n_emit,
-        sd.n_nodes, int(sd.has_sss), stack_size, int(sd.has_refract))
+        sd.n_nodes, int(sd.has_sss), sd.bvh_depth + 1, int(sd.has_refract),
+        sd.bvh_root)
 
 
 def render_args(eye, rot, cfg, sample_base: int, spp: int) -> RenderArgs:

@@ -51,8 +51,9 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg,
     r = kernels.render_args(eye, rot, cfg, sample_base, spp)
     out = torch.empty((4, cfg.width * cfg.height), dtype=torch.float32,
                       device=sd.device)
-    rc = kernels.library().mega_render(ctypes.byref(s), ctypes.byref(r),
-                                       kernels.ptr(out), kernels.stream(sd.device))
+    next_pixel = torch.zeros(1, dtype=torch.int32, device=sd.device)  # the work counter
+    rc = kernels.library().mega_render(ctypes.byref(s), ctypes.byref(r), kernels.ptr(out),
+                                       kernels.ptr(next_pixel), kernels.stream(sd.device))
     kernels.check_rc(rc, "mega_render")
     LAUNCHES["mega_render"] += 1
     return out

@@ -56,6 +56,70 @@ TABLES = {
     "env_map": _F32,                                  # [He, We, 3]
 }
 
+# the kernels' walk tables, packed on the host from the SoA tables above
+# (``pack_walk_tables``); the plain versions walk the SoA tables
+PACKED = {
+    "bvh_nodes": _I32,   # [inner nodes, 16]: one 64-byte record each
+    "tri_packed": _F32,  # [T, 12]: p1, p2, p3 in one 48-byte record each
+}
+# a child word of a record (``pack_walk_tables``): an inner child is its
+# record index (>= 0); a leaf child is LEAF_FLAG | count << 24 | first
+# triangle; a missing child is LEAF_FLAG alone (a leaf of no triangles)
+LEAF_FLAG = -(1 << 31)
+LEAF_MAX_COUNT = 127
+LEAF_MAX_FIRST = (1 << 24) - 1
+
+
+def pack_walk_tables(fields: dict) -> dict:
+    """The kernels' walk tables from the SoA tables (NumPy, every value
+    bit-identical to its SoA source):
+
+    - ``bvh_nodes`` int32 [inner nodes, 16], one 64-byte record per inner
+      node in node-id order (the root first): words 0-2 the left child's
+      ``aa``, 3-5 its ``bb``, 6-8 the right child's ``aa``, 9-11 its
+      ``bb`` (float32 bits), 12 the left child's word, 13 the right's,
+      14-15 zero;
+    - ``tri_packed`` float32 [T, 12], per triangle p1, p2, p3 and three
+      zeros (3 x float4);
+    - ``bvh_root``: the root's child word.
+
+    Node 0 is the sentinel; a node with ``bvh_n > 0`` is a leaf."""
+    left = np.asarray(fields["bvh_left"], np.int64)
+    right = np.asarray(fields["bvh_right"], np.int64)
+    n = np.asarray(fields["bvh_n"], np.int64)
+    index = np.asarray(fields["bvh_index"], np.int64)
+    aa = np.ascontiguousarray(fields["bvh_aa"], np.float32).view(np.int32)
+    bb = np.ascontiguousarray(fields["bvh_bb"], np.float32).view(np.int32)
+    k = len(n)
+    if (n > LEAF_MAX_COUNT).any() or (index[n > 0] + n[n > 0] - 1 > LEAF_MAX_FIRST).any():
+        raise ValueError(f"a leaf holds more than {LEAF_MAX_COUNT} triangles or starts "
+                         f"beyond triangle {LEAF_MAX_FIRST}: the packed walk cannot "
+                         f"address it")
+    inner = np.nonzero((np.arange(k) > 0) & (n <= 0))[0]
+    record = np.full(k, -1, np.int64)
+    record[inner] = np.arange(len(inner))
+    word = np.where(n > 0, LEAF_FLAG | (n << 24) | index, record).astype(np.int64)
+
+    def child_word(c):
+        return np.where(c > 0, word[np.clip(c, 0, k - 1)], LEAF_FLAG)
+
+    nodes = np.zeros((len(inner), 16), np.int32)
+    lc, rc = left[inner], right[inner]
+    nodes[:, 0:3] = aa[np.clip(lc, 0, k - 1)]
+    nodes[:, 3:6] = bb[np.clip(lc, 0, k - 1)]
+    nodes[:, 6:9] = aa[np.clip(rc, 0, k - 1)]
+    nodes[:, 9:12] = bb[np.clip(rc, 0, k - 1)]
+    nodes[lc <= 0, 0:6] = 0
+    nodes[rc <= 0, 6:12] = 0
+    nodes[:, 12] = child_word(lc)
+    nodes[:, 13] = child_word(rc)
+    t = len(fields["tri_p1"])
+    tris = np.zeros((t, 12), np.float32)
+    for j, key in enumerate(("tri_p1", "tri_p2", "tri_p3")):
+        tris[:, 3 * j:3 * j + 3] = np.asarray(fields[key], np.float32).reshape(t, 3)
+    root = int(word[1]) if k > 1 else LEAF_FLAG
+    return dict(bvh_nodes=nodes, tri_packed=tris, bvh_root=root)
+
 
 @dataclasses.dataclass
 class SceneData:
@@ -92,6 +156,9 @@ class SceneData:
     bvh_aa: torch.Tensor
     bvh_bb: torch.Tensor
     env_map: torch.Tensor
+    bvh_nodes: Optional[torch.Tensor]   # PACKED; None: a scene the kernels refuse
+    tri_packed: Optional[torch.Tensor]
+    bvh_root: int
     n_triangles: int
     n_objects: int
     n_emit: int
@@ -108,7 +175,9 @@ class SceneData:
 
     def to(self, device) -> "SceneData":
         return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in TABLES})
+            self, **{k: getattr(self, k).to(device) for k in TABLES},
+            **{k: None if getattr(self, k) is None else getattr(self, k).to(device)
+               for k in PACKED})
 
 
 def _check_device(device) -> torch.device:
@@ -124,12 +193,14 @@ def _check_device(device) -> torch.device:
 def scene_from_numpy(fields: dict, device="cuda") -> SceneData:
     """SceneData from a dict of NumPy arrays named as ``TABLES`` plus
     ``leaf_size`` (extra keys ignored) — e.g. the fields of the JAX
-    package's ``assemble(..., xp=np)``. The other static facts are
-    recomputed from the tables. The tables go to the card unless the
-    caller asks for another device."""
+    package's ``assemble(..., xp=np)``. The kernels' packed walk tables
+    (``PACKED``) and the other static facts are computed from the tables.
+    The tables go to the card unless the caller asks for another device."""
     device = _check_device(device)
     t = {k: torch.tensor(np.ascontiguousarray(np.asarray(fields[k])),
                          dtype=dt, device=device) for k, dt in TABLES.items()}
+    packed = pack_walk_tables(fields)
+    t.update({k: torch.from_numpy(packed[k]).to(device) for k in PACKED})
     refract = np.asarray(fields["mat_refract"])
     reflex = np.asarray(fields["mat_reflex"])
     left = np.asarray(fields["bvh_left"])
@@ -140,6 +211,7 @@ def scene_from_numpy(fields: dict, device="cuda") -> SceneData:
                               bb=np.asarray(fields["bvh_bb"]))
     return SceneData(
         **t,
+        bvh_root=packed["bvh_root"],
         n_triangles=int(len(fields["tri_p1"])),
         n_objects=int(len(refract)),
         n_emit=int(len(fields["emit_idx"])),

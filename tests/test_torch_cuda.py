@@ -4,12 +4,19 @@ reason) where there is no CUDA device or no nvcc. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-Tolerances: BVH ids exact and t within 1e-6 relative; radiance sums per
-pixel atol = 1e-4 * max, rtol = 1e-3 (the kernels are built with
---fmad=false and match the plain versions to a few ulps; the pool's film
-adds are float atomics, so its sums within a pixel change order); lane
-integers and counters of one pool step exact, its floats within 1e-5 of
-their max; display u8 within 1."""
+Tolerances: BVH ids and t exact (the kernels' walk visits the plain
+walk's nodes in its order with its arithmetic, built with --fmad=false);
+the megakernel's useful rays exact and its radiance sums per pixel
+within MEGA_RTOL * |plain| + MEGA_ATOL_FRAC * max|plain| (it composites
+each path forward, the plain version folds the (dir, rate) stack
+backward as the reference does: the same sum, rounded in another order,
+on paths of three or more terms); radiance sums of the other kernels per
+pixel atol = 1e-4 * max, rtol = 1e-3 (they match the plain versions to a
+few ulps; the pool's film adds are float atomics, so its sums within a
+pixel change order); lane integers and counters of one pool step exact,
+its floats within 1e-5 of their max; display u8 within 1."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -27,6 +34,8 @@ from jaderaytracerendering_tpu_torch.scene.scene import assemble
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
+
+MEGA_RTOL, MEGA_ATOL_FRAC = 1e-5, 1e-6  # the JAX package's mega-vs-scan bound
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +65,7 @@ def test_bvh_nearest_kernel_matches_plain(jade_cuda):
     o, d, ex = _rays(sd, 1, 8192, 0)
     tk, ik = trace.trace_segments(sd, o, d, ex)
     tp, ip = trace.trace_segments_plain(sd, o, d, ex)
-    assert torch.equal(ik, ip)
-    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0)
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
 
 
 def test_trace_segments_kernel_matches_plain(jade_cuda):
@@ -69,8 +77,26 @@ def test_trace_segments_kernel_matches_plain(jade_cuda):
     tp, ip = trace.trace_segments_plain(sd, o, d, ex, anyhit_seg=2)
     assert torch.equal(tk < kernels.INF, tp < kernels.INF)
     near = [0, 1, 3]  # segment 2 is any-hit: its hit flag only
-    assert torch.equal(ik[near], ip[near])
-    torch.testing.assert_close(tk[near], tp[near], rtol=1e-6, atol=0)
+    assert torch.equal(ik[near], ip[near]) and torch.equal(tk[near], tp[near])
+
+
+def test_cuda_scene_without_packed_tables_is_refused(jade_cuda):
+    ds, sd = jade_cuda
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    o, d, ex = _rays(sd, 1, 64, 6)
+    for k in ("bvh_nodes", "tri_packed"):
+        bare = dataclasses.replace(sd, **{k: None})
+        with pytest.raises(ValueError, match="packed walk tables"):
+            trace.trace_segments(bare, o, d, ex)
+        with pytest.raises(ValueError, match="packed walk tables"):
+            megak.mega_render(bare, eye, rot, RenderConfig(width=8, height=8), 0, 1)
+
+
+def _mega_close(k, p):
+    """The megakernel's [4, npix] against the plain version's."""
+    assert torch.equal(k[3], p[3])
+    torch.testing.assert_close(k[:3], p[:3], rtol=MEGA_RTOL,
+                               atol=MEGA_ATOL_FRAC * float(p[:3].abs().max()))
 
 
 @pytest.fixture(scope="module")
@@ -169,9 +195,34 @@ def test_mega_render_kernel_matches_plain(jade_cuda):
     assert kernels.LAUNCHES["mega_render"] == before + 1
     p = megak.mega_render_plain(sd, eye, rot, cfg, 3, cfg.spp)
     torch.cuda.synchronize()
-    torch.testing.assert_close(k[:3], p[:3], rtol=1e-3,
-                               atol=1e-4 * float(p[:3].abs().max()))
-    assert torch.equal(k[3], p[3])
+    _mega_close(k, p)
+
+
+def test_mega_render_matches_plain_over_several_grid_passes(jade_cuda):
+    """A film of more pixels than the persistent grid holds threads (at
+    most 2048 a multiprocessor), so its warps take pixels again and again."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=640, height=480, spp=1, max_depth=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cfg.width * cfg.height > sms * 2048
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    k = megak.mega_render(sd, eye, rot, cfg, 2, cfg.spp)
+    p = megak.mega_render_plain(sd, eye, rot, cfg, 2, cfg.spp)
+    _mega_close(k, p)
+
+
+def test_mega_render_matches_plain_at_another_bvh_depth(jade_cuda):
+    """Jade with 100k statue triangles: a deeper tree, so a taller stack."""
+    ds, sd2k = jade_cuda
+    big = demo.jade_scene(n_buddha_tris=100_000, env_shape=(32, 64))
+    big.camera.r = 2.0
+    sd = assemble(big.objects, big.env_map, device="cuda")
+    assert sd.bvh_depth > sd2k.bvh_depth
+    cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(big.camera, "cuda")
+    k = megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp)
+    p = megak.mega_render_plain(sd, eye, rot, cfg, 0, cfg.spp)
+    _mega_close(k, p)
 
 
 def test_render_film_mega_on_cuda_uses_the_kernel(jade_cuda):
@@ -211,8 +262,7 @@ def test_mega_render_refract_kernel_matches_plain(glass_cuda):
     assert kernels.LAUNCHES["mega_render"] == before + 1
     p = megak.mega_render_plain(sd, eye, rot, cfg, 1, cfg.spp)
     torch.cuda.synchronize()
-    torch.testing.assert_close(k[:3], p[:3], rtol=1e-3, atol=1e-4 * float(p[:3].abs().max()))
-    assert torch.equal(k[3], p[3])
+    _mega_close(k, p)
 
 
 def test_pool_refract_kernels_match_plain(glass_cuda):

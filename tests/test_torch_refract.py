@@ -8,10 +8,15 @@ the statue made DIR_REFRACT (index 1.5, rate 0.9; tests/test_integrator.py
 ``max_refract_bounces`` 8.
 
 Tolerances: the films per pixel atol 1e-6 * max|film|, rtol 1e-5 (the
-JAX package's own mega-vs-scan bound, tests/test_mega.py:102-103); the
-march's floats rtol 1e-5, atol 1e-5 * scale (torch's and NumPy's libm
-pow differ by an ulp); its masks and triangle ids exact. Useful-ray
-totals of the port's engines are exact and equal.
+JAX package's own mega-vs-scan bound, tests/test_mega.py:102-103). The
+march: its masks, triangle ids, exit directions and exit points exact
+(every operation on them is an IEEE-rounded +, -, *, / or square root,
+``vecmath.sqrt`` rounding correctly on every machine); its rates rtol
+1e-5, atol 1e-5 * scale: each of the at most 8 steps multiplies by
+``pow(rate, t)``, where torch's and NumPy's libm may differ by an ulp
+(6e-8 relative), so a lane's rate differs by at most ~8 such ulps and a
+few rounding ulps, under 1e-6 relative. Useful-ray totals of the port's
+engines are exact and equal.
 """
 
 import dataclasses
@@ -107,10 +112,25 @@ def test_refract_march_matches_jax(scenes):
     np.testing.assert_array_equal(got.escaped.numpy(), w_esc)
     np.testing.assert_array_equal(got.last.numpy(), w_last)
     assert w_esc.any() and (alive & ~w_esc).any() and (w_last != tri).any()
-    for a, w in ((got.dir, w_dir), (got.rate, w_rate), (got.src, w_src)):
-        a = np.stack([v.numpy() for v in a])
-        w = np.stack(w).astype(np.float32)
-        np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
+    for a, w in ((got.dir, w_dir), (got.src, w_src)):
+        np.testing.assert_array_equal(np.stack([v.numpy() for v in a]),
+                                      np.stack(w).astype(np.float32))
+    w = np.stack(w_rate).astype(np.float32)
+    np.testing.assert_allclose(np.stack([v.numpy() for v in got.rate]), w, rtol=1e-5,
+                               atol=1e-5 * np.abs(w).max())
+
+
+def test_sqrt_rounds_correctly():
+    """The port's square root equals NumPy's (IEEE, correctly rounded) bit
+    for bit, also where torch's own float32 sqrt is an ulp off on some x86
+    builds (the march's exit directions parted from JAX that way)."""
+    from jaderaytracerendering_tpu_torch.core import vecmath
+
+    x = np.random.default_rng(3).uniform(0, 4, 1 << 20).astype(np.float32)
+    x[:3] = (0.0, 0.8649341, 1e-30)
+    got = vecmath.sqrt(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.sqrt(x).view(np.int32))
 
 
 @pytest.mark.parametrize("engine", ["scan", "pool", "mega"])
