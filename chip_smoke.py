@@ -19,7 +19,7 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      against the plain version on a random subset of 4096 pixels (as in
      phase 3); the main path's bound (the subset's box, triangle and shading
      operations scaled to the film; the tables and the output) and the
-     megakernel's profiler device time;
+     megakernel's device time;
   5. trace kernel: 2^16 random rays x 4 stacked segments (random
      exclusions, segment 2 any-hit) against the plain per-segment walk,
      ids and t bit for bit;
@@ -32,7 +32,11 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      defaults, held against phase 4's megakernel film (same samples,
      other summation order) and its useful-ray total (equal); then each
      pool kernel at the main path's shapes (the pool state after a few
-     iterations) against its plain version, timed;
+     iterations) against its plain version, timed by device time (each
+     mutating call on its own copy of the state) beside CUDA events
+     around the call; then one more pool render under torch.profiler for
+     each pool kernel's launches and device total over the render (one
+     spawn launch a round);
   9. scan on the card: ``render_film(engine="scan")`` at phase 7's size
      through the trace kernel, against phase 7's plain film;
  10. refraction: the jade scene with the statue made DIR_REFRACT (index
@@ -42,9 +46,10 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      (equal useful rays), one pool iteration's kernels against their
      plain versions; the megakernel's instance as in phase 3; ptxas
      registers of both instances of each kernel;
- 11. preview kernel vs plain: jade 96x96, 4 spp, the whole image; then a
-     4-band rotation through the kernel equal to one full frame through
-     it, bit for bit;
+ 11. preview kernel vs plain: jade 96x96, 4 spp, the whole image, both
+     adding into a film of ones, asserted bit for bit; then a 4-band
+     rotation through the kernel equal to one full frame through it, bit
+     for bit;
  12. postfx vs plain: phase 4's 1024^2 film in the modes aces, reinhard
      and none (and flipped), u8 within 1, timed;
  13. the preview main path: the preview CLI at its defaults (jade 20k,
@@ -53,9 +58,20 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      random pixels, the last frame shown and the banded display of each
      frame of a rotation (two postfx launches over two spans, two counts)
      against the plain postfx band by band, and the written image
-     checked; kernel ms per banded frame and postfx ms; then 64 frames
-     for the steady frames per second, and 64 more under torch.profiler
-     for the device's idle share in the steady frames.
+     checked; kernel ms per banded frame, its bound (the walks of a random
+     subset of the band's pixels counted and scaled) and postfx ms; then 64
+     frames for the steady frames per second, and 64 more under
+     torch.profiler for the device's idle share in the steady frames and
+     the kernels they ran (one preview launch a frame, at most two postfx,
+     nothing else).
+
+A kernel's device time comes from CUDA events around calls queued behind
+a spin kernel (``device_ms_each``), not from torch.profiler: on the
+H100 machine a trace at times lost device events, all of a window's (in
+phases 8, 10 and 12) or some of them, which a time per call then
+understates. The profiler traces whole runs (phase 8's pool render,
+phase 13's steady frames), traced again until the trace holds what it
+is read for.
 
 Every phase prints one line; any failure raises (exit code != 0). The
 line before the last is the kernels' JSON record, the last line is
@@ -114,6 +130,10 @@ FRONT_OPS, RESOLVE_OPS, SPAWN_OPS = 150, 300, 80
 # two bounces of sampling, fold and weights, the env lookups), and the
 # postfx kernel's per pixel (scale, ACES, power, quantize on 3 channels)
 PREVIEW_OPS, POSTFX_OPS = 150, 60
+TIMED_CALLS = 5                  # timed calls of a pool kernel that mutates its
+                                 # state, each on its own copy
+SPIN_CYCLES = 100_000_000        # device_ms_each: ~50 ms of spin at the H100's clock,
+                                 # far longer than the host takes to queue the calls
 PREVIEW_MAIN_FRAMES = 8          # phase 13: two rotations of 4 bands
 PREVIEW_STEADY_FRAMES = 64       # phase 13: frames of the steady-state runs,
 PREVIEW_WARM_FRAMES = 8          # of which the first 8 (first launches,
@@ -147,23 +167,48 @@ def cuda_ms_each(fns) -> float:
     return float(np.median([cuda_ms(f) for f in fns]))
 
 
-def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Device time of one launch of ``kernel`` (a substring of its name),
-    from torch.profiler over ``reps`` calls of ``fn``: the kernel alone,
-    without the host's dispatch between launches."""
+def device_ms_each(fns) -> float:
+    """Device time of one call, each of ``fns[1:]`` on its own prepared
+    input (``fns[0]`` a warm-up): CUDA events around the calls, queued
+    behind a spin kernel so that the device runs them back to back without
+    waiting on the host (their kernels and the gaps between launches). A
+    call that waits on the device (a read back) is refused."""
+    fns[0]()
+    torch.cuda.synchronize()
+    start, spun, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun.record()
+    start.record()
+    for fn in fns[1:]:
+        fn()
+    end.record()
+    if spun.query():
+        raise AssertionError("device_ms_each: the device caught up with the host; "
+                             "raise SPIN_CYCLES")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(fns) - 1)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """``device_ms_each`` over ``reps`` calls of ``fn``."""
+    return device_ms_each([fn] * (reps + 1))
+
+
+def traced(run, kernel: str, tries: int = 3):
+    """torch.profiler over ``run()`` -> (its result, the profile), traced
+    again, up to ``tries`` times, while the trace holds no device event of
+    ``kernel``: on this machine a trace at times came back without any."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    if not us or sum(us) <= 0:
-        raise AssertionError(f"the profiler saw no device time of {kernel!r}")
-    return sum(us) / reps / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
+               for e in prof.events()):
+            return out, prof
+    raise AssertionError(f"the profiler saw no device event of {kernel!r} in {tries} traces")
 
 
 def host_ms(fn) -> float:
@@ -217,6 +262,20 @@ def device_idle_share(prof, kernel: str, first: int) -> tuple[float, float]:
             busy += b - a
         covered = max(covered, hi)
     return 1.0 - busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def device_kernels(prof, kernel: str, first: int) -> dict:
+    """From a torch.profiler trace: {name: launches} of every device kernel
+    (copies left out) that starts in the window of ``device_idle_share``,
+    from launch ``first`` of ``kernel`` to its last launch."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    starts = sorted(e.time_range.start for e in dev if kernel in e.name)
+    out = {}
+    for e in dev:
+        if starts[first] <= e.time_range.start <= starts[-1] and \
+                not e.name.startswith(("Memcpy", "Memset")):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
 
 
 def banded_display_plain(accum, frame_idx: int, bands: int, spp: int, mode: str):
@@ -338,7 +397,10 @@ def compare_states(k, p, what: str) -> float:
 def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
     """The pool state after ``iters`` iterations at ``m`` lanes, then each
     pool kernel once on it against its plain version on the same input.
-    Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    Returns {kernel: {max_abs_err, ms, call_ms, plain_ms, bound_ms,
+    bound_by}}: ``ms`` is the device time of one call (``device_ms_each``),
+    ``call_ms`` CUDA events around one call from Python (the wrapper's host
+    work included)."""
     from jaderaytracerendering_tpu_torch.core import camera as camera_mod
     from jaderaytracerendering_tpu_torch.integrator import pool
     from jaderaytracerendering_tpu_torch.ops import (bounce_front, bounce_resolve, kernels,
@@ -372,8 +434,10 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
                            for r in (0, 3, 6)])
     b = bound(lane_in + n_active * 40 + n_seg * m * 28 + scene_bytes(sd, ("tri_norm",)),
               n_active * FRONT_OPS)
+    call_ms = cuda_ms(lambda: bounce_front.front_bounce(st), reps=5)
     out["front_bounce"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: bounce_front.front_bounce(st), reps=5),
+        max_abs_err=err, call_ms=call_ms,
+        ms=device_ms(lambda: bounce_front.front_bounce(st), reps=5),
         plain_ms=host_ms(lambda: bounce_front.front_bounce_plain(st)),
         bound_ms=b[0], bound_by=b[1])
 
@@ -393,28 +457,37 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
     n_rays = int((d != 0).any(dim=1).sum())
     b = bound(n_seg * m * 20 + n_rays * 16 + scene_bytes(sd, WALK_TABLES),
               work["boxes"] * BOX_OPS + work["tris"] * TRI_OPS)
+    trace_call = lambda: trace.trace_segments(sd, o, d, x, e_cnt)  # noqa: E731
+    call_ms = cuda_ms(trace_call, reps=3)
     out["trace_segments"] = dict(
-        max_abs_err=t_err, ms=cuda_ms(lambda: trace.trace_segments(sd, o, d, x, e_cnt),
-                                      reps=3),
+        max_abs_err=t_err, call_ms=call_ms,
+        ms=device_ms(trace_call, reps=3),
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], ids_differ=n_diff,
         t_differ=t_diff, work=work)
 
     # resolve: in place, so each call gets its own copy of the state
-    ks = [st.clone() for _ in range(4)]
+    ks = [st.clone() for _ in range(1 + 3 + 1 + TIMED_CALLS)]
+    for k in ks:  # launch arguments built (the camera read back) before any timing
+        k.args()
     ps = st.clone()
     bounce_resolve.resolve_bounce(ks[0], bt, bi)
     plain_ms = host_ms(lambda: bounce_resolve.resolve_bounce_plain(ps, bt, bi))
     err = compare_states(ks[0], ps, f"{what} resolve")
-    ms = cuda_ms_each([lambda s=s: bounce_resolve.resolve_bounce(s, bt, bi) for s in ks[1:]])
+    calls = [lambda s=s: bounce_resolve.resolve_bounce(s, bt, bi) for s in ks[1:]]
+    call_ms = cuda_ms_each(calls[:3])
+    ms = device_ms_each(calls[3:])
     b = bound(lane_in + n_active * (80 + n_seg * 8) + n_active * 72 + 2 * npix * 12
               + scene_bytes(sd, ("tri_norm", "tri_obj", "env_map")),
               n_active * RESOLVE_OPS)
-    out["resolve_bounce"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    out["resolve_bounce"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                                  bound_ms=b[0], bound_by=b[1])
 
     # spawn on the resolved state: queue cut, lane ints and counters equal
     after = ks[0]
-    ks = [after.clone() for _ in range(4)]
+    del ks, calls
+    ks = [after.clone() for _ in range(1 + 3 + 1 + TIMED_CALLS)]
+    for k in ks:
+        k.args()
     ps = after.clone()
     aux_k = torch.empty((8, m), dtype=torch.float32, device=sd.device)
     aux_p = torch.empty_like(aux_k)
@@ -427,11 +500,13 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
                              f"{int(((aux_k[7] != 0) != got).sum())} lanes")
     err = compare_states(ks[0], ps, f"{what} spawn")
     n_got = int(got.sum())
-    ms = cuda_ms_each([lambda s=s: spawn_front.spawn_primary(s) for s in ks[1:]])
+    calls = [lambda s=s: spawn_front.spawn_primary(s) for s in ks[1:]]
+    call_ms = cuda_ms_each(calls[:3])
+    ms = device_ms_each(calls[3:])
     b = bound(lane_in + n_got * 96 + 2 * npix * 12 + scene_bytes(sd, WALK_TABLES),
               work["boxes"] * BOX_OPS + work["tris"] * TRI_OPS + n_got * SPAWN_OPS)
-    out["spawn_primary"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                                bound_by=b[1], got=n_got)
+    out["spawn_primary"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                bound_ms=b[0], bound_by=b[1], got=n_got)
     out["_state"] = dict(lanes=m, active=n_active, iterations=iters)
     return out
 
@@ -440,10 +515,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
+    from jaderaytracerendering_tpu_torch.cli import pool_sweep
     from jaderaytracerendering_tpu_torch.cli import preview as cli_preview
     from jaderaytracerendering_tpu_torch.cli import render as cli_render
     from jaderaytracerendering_tpu_torch.core import camera as camera_mod
     from jaderaytracerendering_tpu_torch.core.film import Film
+    from jaderaytracerendering_tpu_torch.integrator import mega as mega_mod
     from jaderaytracerendering_tpu_torch.integrator import pool, wavefront
     from jaderaytracerendering_tpu_torch.integrator import render as trender
     from jaderaytracerendering_tpu_torch.integrator.render import render_batch
@@ -497,6 +574,9 @@ def main() -> None:
     # ---- phase 3: megakernel vs plain on one whole image -------------------
     cfg3 = RenderConfig(width=96, height=96, spp=4, max_depth=6)
     eye, rot = camera_mod.camera_tensors(ds.camera, dev)
+    # the camera on the host for timed calls, as the render and preview
+    # paths pass it: a camera on the card is read back at each launch
+    eye_h, rot_h = mega_mod.host_camera(ds.camera)
     out_k = megak.mega_render(sd, eye, rot, cfg3, 0, cfg3.spp)
     torch.cuda.synchronize()
     ms3 = cuda_ms(lambda: megak.mega_render(sd, eye, rot, cfg3, 0, cfg3.spp), reps=5)
@@ -563,8 +643,8 @@ def main() -> None:
     rad_k = film.accum.reshape(-1, 3)[ids]
     err4, ne4 = compare_mega(rad_k.T, rad_p.T, "phase 4 subset")
     main_ms = cuda_ms(lambda: megak.mega_render(sd, eye, rot, cfg4, 0, cfg4.spp))
-    main_dev_ms = kernel_ms(lambda: megak.mega_render(sd, eye, rot, cfg4, 0, cfg4.spp),
-                            "mega_render_kernel", reps=5)
+    main_dev_ms = device_ms(lambda: megak.mega_render(sd, eye_h, rot_h, cfg4, 0, cfg4.spp),
+                            reps=5)
     # the subset's work scaled to the film: the walks' tests and the
     # shading of each bounce; the tables once and 16 bytes out a pixel
     scale4 = npix / ids.numel()
@@ -574,7 +654,7 @@ def main() -> None:
                              * (FRONT_OPS + RESOLVE_OPS)))
     log(f"phase 4 check: film vs plain torch on {ids.numel()} random pixels: max abs err "
         f"{err4:.3e} (max {float(rad_p.abs().max()):.3e}), {ne4} not bit-equal (plain {plain_sub_s:.1f} s); one mega_render at the main-path shape {main_ms:.2f} ms "
-        f"(CUDA events), {main_dev_ms:.3f} ms profiler device time; main-path bound "
+        f"(CUDA events), {main_dev_ms:.3f} ms device time; main-path bound "
         f"{bound4[0]:.4f} ms ({bound4[1]}; the subset's {work4['boxes']} box, {work4['tris']} "
         f"triangle tests and {float(rays_p.sum()):.0f} useful rays x {scale4:.0f}) [{gpu}]")
 
@@ -689,12 +769,33 @@ def main() -> None:
                             "phase 8")
     log("phase 8 kernels at the main path's shapes ("
         + ", ".join(f"{k} {v}" for k, v in it8["_state"].items()) + "): "
-        + "; ".join(f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.0f} ms, bound "
-                    f"{v['bound_ms']:.4f} ms by {v['bound_by']}, err {v['max_abs_err']:.2e})"
+        + "; ".join(f"{k} {v['ms']:.4f} ms device ({v['call_ms']:.3f} ms a call from Python; "
+                    f"plain {v['plain_ms']:.0f} ms, bound {v['bound_ms']:.4f} ms by "
+                    f"{v['bound_by']}, err {v['max_abs_err']:.2e})"
                     for k, v in it8.items() if not k.startswith("_"))
         + f"; trace ids differ {it8['trace_segments']['ids_differ']}, t differ "
         f"{it8['trace_segments']['t_differ']}; trace work {it8['trace_segments']['work']} "
         f"[{gpu}]")
+    # one more pool main-path render under the profiler (cli/pool_sweep.py's
+    # trace): each pool kernel's launches and device total over the render.
+    # The trace must hold every launch the render made (one spawn launch a
+    # round): the profiler at times loses device events, so it is traced
+    # again until it does
+    for _ in range(3):
+        tr8 = pool_sweep.trace_render(
+            lambda s, c, f, stats=None: pool.render_film_pool(s, c, f.replace(engine="pool"),
+                                                              stats=stats),
+            sd, ds.camera, cfg4)
+        seen8 = {k: v["launches"] for k, v in tr8["wrappers"].items()}
+        if seen8 == {k: launches8[k] for k in pool_names}:
+            break
+    else:
+        raise AssertionError(f"phase 8 trace: launches seen {seen8}, made "
+                             f"{ {k: launches8[k] for k in pool_names} }")
+    log("phase 8 pool main path traced: wall " f"{tr8['wall_ms']:.3f} ms, device busy "
+        f"{tr8['busy_ms']:.3f} ms, idle {100 * tr8['idle_share']:.1f}%; "
+        + ", ".join(f"{k} {v['device_ms']:.3f} ms in {v['launches']} launches"
+                    for k, v in tr8["wrappers"].items()) + f" [{gpu}]")
 
     # ---- phase 9: the scan engine on the card -----------------------------
     kernels.reset_launches()
@@ -769,17 +870,24 @@ def main() -> None:
     # ---- phase 11: the preview kernel against its plain version -----------
     cfg11 = cfg3.replace(integrator="preview")
     kernels.reset_launches()
-    out11k = megak.render_preview_mega(sd, eye, rot, cfg11, 0, cfg11.spp)
+    # both add into a film of ones: the kernel's add into the band is held too
+    out11k = megak.render_preview_mega(sd, eye, rot, cfg11, 0, cfg11.spp,
+                                       torch.ones((npix3, 3), device=dev))
     torch.cuda.synchronize()
     t_plain = time.perf_counter()
     with traverse.count_work() as work11:
-        out11p = megak.render_preview_mega_plain(sd, eye, rot, cfg11, 0, cfg11.spp)
+        out11p = megak.render_preview_mega_plain(sd, eye, rot, cfg11, 0, cfg11.spp,
+                                                 torch.ones((npix3, 3), device=dev))
     torch.cuda.synchronize()
     plain_ms11 = (time.perf_counter() - t_plain) * 1e3
-    ms11 = kernel_ms(lambda: megak.render_preview_mega(sd, eye, rot, cfg11, 0, cfg11.spp),
-                     "preview_render_kernel", reps=5)
-    err11, outside11, mean11 = compare_images(out11k, out11p, "phase 11")
-    bound11 = bound(scene_bytes(sd, PREVIEW_TABLES) + 12 * npix3,
+    band11 = torch.zeros((npix3, 3), device=dev)
+    ms11 = device_ms(lambda: megak.render_preview_mega(sd, eye_h, rot_h, cfg11, 0, cfg11.spp,
+                                                       band11), reps=5)
+    if not torch.equal(out11k, out11p):
+        raise AssertionError(f"phase 11: the preview kernel differs from its plain version on "
+                             f"{int((out11k != out11p).any(dim=1).sum())} pixels")
+    err11, outside11, mean11 = compare_images(out11k.T, out11p.T, "phase 11")
+    bound11 = bound(scene_bytes(sd, PREVIEW_TABLES) + 24 * npix3,
                     work11["boxes"] * BOX_OPS + work11["tris"] * TRI_OPS
                     + npix3 * cfg11.spp * PREVIEW_OPS)
     pcfg = cfg11.replace(spp=1, preview_bands=4)
@@ -792,7 +900,7 @@ def main() -> None:
         raise AssertionError("phase 11: a 4-band rotation differs from one full frame")
     log(f"phase 11 preview kernel vs plain: jade 96x96 4spp 2 bounces: max abs err "
         f"{err11:.3e} (max {float(out11p.abs().max()):.3e}), {outside11}/{npix3} outside, "
-        f"mean rel diff {mean11:.3e}, bit-equal {bool(torch.equal(out11k, out11p))}; kernel "
+        f"mean rel diff {mean11:.3e}, bit-equal (asserted); kernel "
         f"{ms11:.3f} ms (device time), plain torch {plain_ms11:.0f} ms, bound {bound11[0]:.4f} ms "
         f"({bound11[1]}); 4-band rotation equal to one full frame bit for bit [{gpu}]")
 
@@ -808,8 +916,7 @@ def main() -> None:
                 raise AssertionError(f"phase 12 postfx {mode} flip={flip}: u8 differ by {e}")
             errs12[(mode, flip)] = e
     out12 = torch.empty(film12.shape, dtype=torch.uint8, device=dev)
-    ms12 = kernel_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12),
-                     "postfx_kernel")
+    ms12 = device_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12))
     call_ms12 = cuda_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12),
                         reps=20)
     plain_ms12 = host_ms(lambda: postfx.postfx_plain(film12, cfg4.spp, "aces", flip=True))
@@ -818,7 +925,7 @@ def main() -> None:
     err12 = max(errs12.values())
     log(f"phase 12 postfx vs plain: {cfg4.width}x{cfg4.height} film, aces/reinhard/none, "
         f"plain and flipped: max u8 diff {err12} ({sum(errs12.values())} of 6 cases off by "
-        f"one); kernel {ms12:.4f} ms (profiler device time; {call_ms12:.4f} ms a call from "
+        f"one); kernel {ms12:.4f} ms (device time; {call_ms12:.4f} ms a call from "
         f"Python), plain torch {plain_ms12:.2f} ms, bound {bound12[0]:.4f} ms "
         f"({bound12[1]}) [{gpu}]")
 
@@ -841,9 +948,19 @@ def main() -> None:
     err13, outside13, mean13 = compare_images(film13.accum.reshape(-1, 3)[ids].T, rad13.T,
                                               "phase 13 subset")
     band_px = npix4 // 4
-    frame_ms13 = kernel_ms(lambda: megak.render_preview_mega(sd, eye, rot, pmain, 0, 1, 0,
-                                                             band_px), "preview_render_kernel",
-                           reps=10)
+    band13 = torch.zeros((band_px, 3), device=dev)
+    frame_ms13 = device_ms(lambda: megak.render_preview_mega(sd, eye_h, rot_h, pmain, 0, 1,
+                                                             band13), reps=10)
+    # the band's bound: the walks' tests and the shading of a random subset
+    # of its pixels scaled to the band; the tables once, the band's sums
+    # read and written (12 bytes each way a pixel)
+    ids13 = torch.tensor(np.sort(rng.choice(band_px, 4096, replace=False)), device=dev)
+    with traverse.count_work() as work13:
+        render_batch(sd, eye, rot, ids13, 0, pmain, 1, query=wavefront.nearest_planes_plain)
+    scale13 = band_px / ids13.numel()
+    bound13 = bound(scene_bytes(sd, PREVIEW_TABLES) + 24 * band_px,
+                    scale13 * (work13["boxes"] * BOX_OPS + work13["tris"] * TRI_OPS)
+                    + band_px * PREVIEW_OPS)
     fps13 = info13["frames"] / info13["seconds"]
     # the frame the CLI showed last (a whole rotation: one count), and the
     # banded display of every frame of a rotation, against the plain postfx
@@ -859,30 +976,38 @@ def main() -> None:
                              f"by {disp_err13} u8 steps")
     # the steady state: 64 frames, then 64 more traced; the first frames
     # (first launches, pinned buffers) are left out of both
-    from torch.profiler import ProfilerActivity, profile
-
     with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
         argv = ["--frames", str(PREVIEW_STEADY_FRAMES), "--out", os.path.join(tmp, "p.bmp")]
         _, steady13 = cli_preview.main(argv)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof13:
-            _, traced13 = cli_preview.main(argv)
+        traced13, prof13 = traced(lambda: cli_preview.main(argv)[1], "preview_render_kernel")
     warm = PREVIEW_WARM_FRAMES
     fps_steady13, fps_traced13 = ((len(i["frame_s"]) - warm) / sum(i["frame_s"][warm:])
                                   for i in (steady13, traced13))
     idle13, window13 = device_idle_share(prof13, "preview_render_kernel", warm)
+    # a steady banded frame: one preview launch, one or two postfx, no other kernel
+    ran13 = device_kernels(prof13, "preview_render_kernel", warm)
+    n_prev13 = sum(v for k, v in ran13.items() if "preview_render_kernel" in k)
+    n_post13 = sum(v for k, v in ran13.items() if "postfx_kernel" in k)
+    if (n_prev13 != PREVIEW_STEADY_FRAMES - warm or n_post13 > 2 * n_prev13
+            or n_prev13 + n_post13 != sum(ran13.values())):
+        raise AssertionError(f"phase 13: the steady frames ran {ran13}")
     log(f"phase 13 preview main path: jade {MAIN_TRIS} {cfg4.width}x{cfg4.height}, 1 spp a "
         f"frame, 2 bounces, 4 bands, {info13['frames']} frames in {info13['seconds']:.3f} s: "
         f"{fps13:.1f} frames/s (CLI wall clock, warm-up included); launches {launches13}; "
         f"film vs plain torch on {ids.numel()} random pixels: max abs err {err13:.3e}, "
         f"{outside13} outside, mean rel diff {mean13:.3e}; the last frame shown and the banded "
         f"display of frames 0-{PREVIEW_MAIN_FRAMES - 1} vs the plain postfx band by band: max "
-        f"u8 diff {disp_err13}; render_preview_mega {frame_ms13:.3f} ms per banded frame "
-        f"({band_px} pixels) and postfx {ms12:.4f} ms per full display (device time); BMP "
-        f"{size13} bytes [{gpu}]")
+        f"u8 diff {disp_err13}; render_preview_mega {frame_ms13:.4f} ms per banded frame "
+        f"({band_px} pixels; bound {bound13[0]:.5f} ms by {bound13[1]}: the "
+        f"{ids13.numel()}-pixel subset's {work13['boxes']} box and {work13['tris']} "
+        f"triangle tests x {scale13:.0f}) and postfx {ms12:.4f} ms per full display (device "
+        f"time); BMP {size13} bytes [{gpu}]")
     log(f"phase 13 steady state: {PREVIEW_STEADY_FRAMES} frames, frames {warm + 1}-"
         f"{PREVIEW_STEADY_FRAMES}: {fps_steady13:.1f} frames/s (CLI wall clock); traced run: "
         f"{fps_traced13:.1f} frames/s under torch.profiler, device idle {100 * idle13:.1f}% of "
-        f"the {window13:.2f} ms from its frame {warm + 1}'s preview launch to its last [{gpu}]")
+        f"the {window13:.2f} ms from its frame {warm + 1}'s preview launch to its last, in which "
+        f"the device ran {n_prev13} preview and {n_post13} postfx launches and no other "
+        f"kernel [{gpu}]")
 
     lib_note = "no single PyTorch call computes this function"
     main_shape = (f"jade 20k, 1024x1024 16 spp depth 16, {it8['_state']['lanes']} lanes "
@@ -912,7 +1037,13 @@ def main() -> None:
             "replaces": "jaderaytracerendering_tpu/" + replaces,
             "launches": launches8[name], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
-            "library_ms": None, "library_note": lib_note, "shape": main_shape})
+            "library_ms": None, "library_note": lib_note, "call_ms": v["call_ms"],
+            "main_path_device_ms": tr8["wrappers"][name]["device_ms"],
+            "main_path_launches": tr8["wrappers"][name]["launches"],
+            "shape": main_shape + " (ms: device time of one call, CUDA events around calls "
+                                  "queued behind a spin kernel; call_ms: CUDA events around "
+                                  "a call from Python; main_path_*: over one pool render "
+                                  "under torch.profiler)"})
     for k in kernels_out[1:]:
         if k["name"] in ("front_bounce", "resolve_bounce"):
             k["refract_max_abs_err"] = it10[k["name"]]["max_abs_err"]
@@ -923,9 +1054,10 @@ def main() -> None:
         "launches": launches13["render_preview_mega"], "max_abs_err": err11, "ms": ms11,
         "plain_ms": plain_ms11, "bound_ms": bound11[0], "bound_by": bound11[1],
         "library_ms": None, "library_note": lib_note,
-        "shape": "jade 20k, 96x96, 4 spp, 2 bounces (ms: profiler device time; plain_ms, "
-                 "max_abs_err, bound_ms)",
+        "shape": "jade 20k, 96x96, 4 spp, 2 bounces (ms: device time, CUDA events around "
+                 "calls queued behind a spin kernel; plain_ms, max_abs_err, bound_ms)",
         "main_path_ms": frame_ms13, "main_path_max_abs_err": err13,
+        "main_path_bound_ms": bound13[0], "main_path_bound_by": bound13[1],
         "main_path_frames_per_s": fps_steady13, "main_path_frames_per_s_traced": fps_traced13,
         "main_path_device_idle_share": idle13})
     kernels_out.append({
@@ -935,8 +1067,9 @@ def main() -> None:
         "plain_ms": plain_ms12, "bound_ms": bound12[0], "bound_by": bound12[1],
         "library_ms": None, "library_note": lib_note, "call_ms": call_ms12,
         "main_path_display_max_abs_err": disp_err13,
-        "shape": "1024x1024 film, aces, flipped (max_abs_err in u8 steps; ms: profiler "
-                 "device time, call_ms: CUDA events around a call from Python)"})
+        "shape": "1024x1024 film, aces, flipped (max_abs_err in u8 steps; ms: device time, "
+                 "CUDA events around calls queued behind a spin kernel; call_ms: CUDA "
+                 "events around a call from Python)"})
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Measure the pool engine at the main path on the card: its render time
 at several pool sizes beside the megakernel's, and one traced render of
-each configuration for the device's busy and idle share and the time per
-kernel; optionally the megakernel itself from other builds.
+each configuration for the device's busy and idle share, the time per
+kernel and, per kernel wrapper of ops/, its device time and launches;
+optionally the megakernel itself from other builds.
 
     python -m jaderaytracerendering_tpu_torch.cli.pool_sweep \
         [--lanes 18 19 20 21 22 23] [--reps 3] [--out sweep.json] \
-        [--mega-builds OTHER/csrc ...] [--mega-reps 10]
+        [--mega-builds OTHER/csrc ...] [--mega-reps 10] [--preview FRAMES]
 
 The main path is the render CLI's defaults (jade, 20,000 statue triangles,
 1024x1024, 16 spp, depth 16). Render time is host time around
@@ -17,8 +18,11 @@ each other source directory given, e.g. an older checkout's ``csrc``;
 each needs this tree's C interface. Each build's ``mega_render`` is
 timed with CUDA events, one launch each in turns with this tree's, and
 must give this tree's output bit for bit; its ptxas registers, stack and
-spills are printed. Prints one line per configuration and, last, one JSON
-object. Needs a CUDA device; it does not fall back to the CPU.
+spills are printed. ``--preview`` times the preview kernel at the preview
+main path's banded frames (each quarter of the film, 1 spp, 2 bounces) by
+profiler device time, with its ptxas figures. Prints one line per
+configuration and, last, one JSON object. Needs a CUDA device; it does not
+fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -39,32 +43,49 @@ def _render_s(render, sd, cam, cfg, stats=None) -> float:
     return time.perf_counter() - t0
 
 
-def _trace(render, sd, cam, cfg) -> dict:
+# each wrapper of ops/ and the device kernel it launches (a substring of
+# its name in a profiler trace)
+WRAPPER_KERNELS = {"mega_render": "mega_render_kernel",
+                   "spawn_primary": "spawn_primary_kernel",
+                   "trace_segments": "trace_segments_kernel",
+                   "front_bounce": "front_bounce_kernel",
+                   "resolve_bounce": "resolve_bounce_kernel"}
+
+
+def trace_render(render, sd, cam, cfg) -> dict:
     """One render under torch.profiler -> wall ms, device-busy ms, idle
-    share and device ms by kernel."""
+    share, device ms by kernel (the eight largest), and by wrapper
+    (``WRAPPER_KERNELS``): its device ms and its kernels' launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _render_s(render, sd, cam, cfg)
-    kernels = {}
+    kernels, launches = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches[e.key] = launches.get(e.key, 0) + e.count
     busy = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    by_wrapper = {}
+    for name, sub in WRAPPER_KERNELS.items():
+        keys = [k for k in kernels if sub in k]
+        if keys:
+            by_wrapper[name] = dict(device_ms=sum(kernels[k] for k in keys),
+                                    launches=sum(launches[k] for k in keys))
     return dict(wall_ms=wall * 1e3, busy_ms=busy, idle_share=1.0 - busy / (wall * 1e3),
-                kernels_ms=top)
+                kernels_ms=top, wrappers=by_wrapper)
 
 
-def _ptxas(log_path) -> dict:
-    """Registers, stack frame and spill bytes of ``mega_render_kernel`` in
-    a build's ptxas log (its instance without direct refraction)."""
+def _ptxas(log_path, kernel: str = "mega_render_kernel") -> dict:
+    """Registers, stack frame and spill bytes of ``kernel`` in a build's
+    ptxas log (its instance without direct refraction)."""
     lines = log_path.read_text().splitlines()
     out = {}
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "mega_render_kernel" in line and "ILb1E" not in line:
+        if "Compiling entry" in line and kernel in line and "ILb1E" not in line:
             for nxt in lines[i + 1:i + 6]:
                 if "stack frame" in nxt:
                     nums = [int(w) for w in nxt.replace(",", " ").split() if w.isdigit()]
@@ -86,7 +107,7 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     from ..core import camera as camera_mod
     from ..ops import build, kernels
 
-    eye, rot = camera_mod.camera_tensors(cam, sd.device)
+    eye, rot = mega_mod.host_camera(cam)
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
     r = kernels.render_args(eye, rot, cfg, 0, cfg.spp)
     builds = {"this": (kernels.library(),
@@ -135,6 +156,50 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     return rows
 
 
+def _preview_frames(sd, cam, frames, card) -> dict:
+    """The preview main path's banded frames (``cli.preview``'s defaults: a
+    quarter of the 1024x1024 film, 1 spp, 2 bounces): the preview kernel's
+    device ms per launch in each of the four bands, over ``frames``
+    launches each under torch.profiler (averaged over the launches the
+    trace holds: it can lose some), their mean (a rotation's frame), and
+    its ptxas figures. The camera is passed on the host, as the preview
+    path passes it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..integrator import mega as mega_mod
+    from ..ops import build, kernels
+    from ..ops import mega as megak
+    from ..utils.config import RenderConfig
+
+    pcfg = RenderConfig(integrator="preview", spp=1)
+    eye, rot = mega_mod.host_camera(cam)
+    n_px = pcfg.width * pcfg.height // 4
+    band = torch.zeros((n_px, 3), device=sd.device)
+    band_ms = []
+    for p0 in range(0, 4 * n_px, n_px):
+        megak.render_preview_mega(sd, eye, rot, pcfg, 0, 1, band, p0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for f in range(frames):
+                megak.render_preview_mega(sd, eye, rot, pcfg, f + 1, 1, band, p0)
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "preview_render_kernel" in e.key]
+        if not seen:
+            raise RuntimeError("pool_sweep: the trace holds no preview kernel launch")
+        band_ms.append(sum(e.self_device_time_total for e in seen)
+                       / sum(e.count for e in seen) / 1e3)
+    out = dict(frames=frames, band_px=n_px, band_ms=band_ms, device_ms=sum(band_ms) / 4,
+               **_ptxas(build.library_path("kernels", kernels.SOURCES).with_suffix(".log"),
+                        "preview_render_kernel"))
+    print(f"preview: {out['device_ms']:.4f} ms device time per banded frame, the mean of the "
+          f"bands' " + " ".join(f"{ms:.4f}" for ms in band_ms) + f" ({n_px} pixels, {frames} "
+          f"frames each), ptxas {out} [{card}]", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="jade-pool-sweep")
     ap.add_argument("--lanes", type=int, nargs="+", default=[18, 19, 20, 21, 22, 23],
@@ -143,6 +208,8 @@ def main(argv=None):
     ap.add_argument("--mega-builds", nargs="*", default=[],
                     help="source directories whose mega.cu is timed against this tree's")
     ap.add_argument("--mega-reps", type=int, default=10)
+    ap.add_argument("--preview", type=int, default=0, metavar="FRAMES",
+                    help="also time the preview kernel over this many banded frames")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
 
@@ -197,17 +264,20 @@ def main(argv=None):
               f"{row['msamples_s']:.1f} Msamples/s, {row['useful_mrays_s']:.1f} useful "
               f"Mrays/s, {row['iterations']} iterations, peak {row['peak_mib']:.0f} MiB "
               f"[{card}]", flush=True)
-    traces = {"mega" if n is None else f"pool 2^{n}": _trace(engine(n), sd, ds.camera, cfg)
+    traces = {"mega" if n is None else f"pool 2^{n}": trace_render(engine(n), sd, ds.camera, cfg)
               for n in names}
     for k, v in traces.items():
         print(f"trace {k}: wall {v['wall_ms']:.3f} ms, device busy {v['busy_ms']:.3f} ms, "
               f"idle {100 * v['idle_share']:.1f}%; " + ", ".join(
-                  f"{name[:40]} {ms:.3f}" for name, ms in v["kernels_ms"].items())
+                  f"{name} {w['device_ms']:.3f} ms in {w['launches']} launches"
+                  for name, w in v["wrappers"].items())
+              + "; " + ", ".join(f"{name[:40]} {ms:.3f}" for name, ms in v["kernels_ms"].items())
               + f" [{card}]", flush=True)
     mega_ab = (_mega_ab(sd, ds.camera, cfg, args.mega_builds, args.mega_reps, card)
                if args.mega_builds else [])
+    preview = _preview_frames(sd, ds.camera, args.preview, card) if args.preview else None
     out = dict(card=card, torch=torch.__version__, samples=samples, rows=rows,
-               traces=traces, pool_lanes=pool.POOL_LANES, mega_ab=mega_ab)
+               traces=traces, pool_lanes=pool.POOL_LANES, mega_ab=mega_ab, preview=preview)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -87,9 +87,10 @@ __device__ __forceinline__ void count_add(long long* c, int n) {
   if (n) atomicAdd((unsigned long long*)c, (unsigned long long)n);
 }
 
-// Inclusive prefix sum of v over the block, in thread order. Every thread
-// of the block calls it (blockDim a multiple of 32, at most 1024).
-__device__ int block_inclusive_scan(int v, int* warp_sums) {
+// Inclusive prefix sum of v over the block, in thread order, and the
+// block's total. Every thread of the block calls it (blockDim a multiple
+// of 32, at most 1024).
+__device__ int block_inclusive_scan(int v, int* warp_sums, int& total) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
   for (int o = 1; o < 32; o <<= 1) {
@@ -109,67 +110,151 @@ __device__ int block_inclusive_scan(int v, int* warp_sums) {
   }
   __syncthreads();
   int res = x + (warp > 0 ? warp_sums[warp - 1] : 0);
+  total = warp_sums[(blockDim.x >> 5) - 1];
   __syncthreads();  // warp_sums is free again for the next call
   return res;
 }
 
-constexpr int SPAWN_THREADS = 256;
-constexpr int SCAN_THREADS = 1024;
+// Measured on the H100 at the pool's main path (PERF.md).
+constexpr int SPAWN_THREADS = 128;  // threads of a spawn block
+constexpr int SPAWN_LANES = 8;      // lanes a thread scans: a tile is 1024 lanes
+constexpr int SPAWN_TILE = SPAWN_THREADS * SPAWN_LANES;
 constexpr int LANE_THREADS = 128;
 
-// ---- spawn: queue assignment in lane order + camera ray + primary trace --
+// ---- spawn: one launch a round --------------------------------------------
+// Fresh lanes take the next queue samples in lane order (the plain cumsum's
+// order): a single-pass scan with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016)
+// over tiles of SPAWN_TILE lanes, one block a tile. The scratch `scan`
+// (u64 [1 + tiles], zeroed once) holds a ticket counter, then one status
+// word a tile: (epoch << 2 | flag) in the high half, a value in the low
+// half; flag 1: the tile's fresh count, flag 2: its inclusive prefix,
+// `next` plus the fresh lanes of tiles 0 .. tile. Blocks take tiles in the
+// order of their tickets, so every tile a block looks back on belongs to a
+// block that already runs, whatever order the scheduler starts blocks in.
+// The ticket counter runs on across rounds (round e takes tickets e x tiles
+// ..), so a word of an earlier round carries an older epoch and reads as
+// not yet published: nothing is cleared between rounds. Tile 0 alone reads
+// cnt[C_NEXT]; the last tile, whose prefix is next + all fresh lanes, alone
+// writes the cut min(that, total) (= next + min(fresh, total - next)), and
+// it knows that prefix only after tile 0 has published its read.
+enum { C_NEXT = 0, C_DONE = 1, C_RAYS = 2 };
+constexpr unsigned ST_AGGREGATE = 1u, ST_PREFIX = 2u, EPOCH_MASK = 0x3fffffffu;
 
-// Fresh lanes (active == 0) per block.
-__global__ void __launch_bounds__(SPAWN_THREADS)
-spawn_count_kernel(const int* __restrict__ active, int m, int* __restrict__ block_cnt) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int n = __syncthreads_count(i < m && active[i] == 0);
-  if (threadIdx.x == 0) block_cnt[blockIdx.x] = n;
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long tile_status(unsigned epoch, unsigned flag,
+                                                          unsigned value) {
+  return ((unsigned long long)(((epoch & EPOCH_MASK) << 2) | flag) << 32) | value;
 }
 
-// One block: block counts -> exclusive block offsets (in place), then the
-// queue cut: consumed = min(fresh, total - next); next += consumed. The
-// old next is left in *base for the assignment pass.
-__global__ void __launch_bounds__(SCAN_THREADS)
-spawn_offsets_kernel(int* __restrict__ block_cnt, int nb, long long* __restrict__ cnt,
-                     long long total, long long* __restrict__ base) {
-  __shared__ int warp_sums[32];
-  __shared__ long long carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int start = 0; start < nb; start += blockDim.x) {
-    int j = start + threadIdx.x;
-    int v = j < nb ? block_cnt[j] : 0;
-    int incl = block_inclusive_scan(v, warp_sums);
-    if (j < nb) block_cnt[j] = (int)(carry + incl - v);
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry += incl;
-    __syncthreads();
+// Warp 0 of a tile: publish its fresh count, look back over windows of 32
+// predecessors (lane l reads tile - 1 - l) until one holds its inclusive
+// prefix, summing the counts up to it, then publish the tile's own prefix.
+// Returns the tile's exclusive prefix: the queue index of its first fresh
+// lane. Values stay below 2^32: next < total < 2^31 and fresh <= M < 2^31.
+__device__ unsigned spawn_lookback(unsigned long long* status, int tile, unsigned epoch,
+                                   int n_fresh, const long long* cnt) {
+  const int lane = (int)(threadIdx.x & 31u);
+  unsigned excl = 0;
+  if (tile == 0) {
+    excl = (unsigned)cnt[C_NEXT];
+  } else {
+    if (lane == 0) st_release(status + tile, tile_status(epoch, ST_AGGREGATE, (unsigned)n_fresh));
+    for (int j = tile - 1;; j -= 32) {
+      const int k = j - lane;
+      unsigned long long w = 0;
+      unsigned flag = 0;
+      if (k >= 0) {
+        do {  // the tile's block runs: it publishes its count without waiting
+          w = ld_acquire(status + k);
+          const unsigned hi = (unsigned)(w >> 32);
+          flag = (hi >> 2) == (epoch & EPOCH_MASK) ? (hi & 3u) : 0u;
+        } while (flag == 0);
+      }
+      // the nearest predecessor with its prefix (tile 0 always has one)
+      const unsigned pre = __ballot_sync(0xffffffffu, flag == ST_PREFIX);
+      const int stop = pre ? __ffs(pre) - 1 : 31;
+      unsigned v = (lane <= stop && k >= 0) ? (unsigned)w : 0u;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      excl += v;
+      if (pre) break;
+    }
   }
+  __syncwarp();  // the lanes' acquires before lane 0's release
+  if (lane == 0) st_release(status + tile, tile_status(epoch, ST_PREFIX, excl + (unsigned)n_fresh));
+  return excl;
+}
+
+// One spawn round: fresh lanes take queue samples, trace their primary
+// rays and either start a path (hit) or add the sky to the film and stay
+// fresh (miss). Thread j scans lanes SPAWN_LANES x j .. of the tile. After
+// the scan each fresh lane that took a sample writes its place in the tile
+// at its rank; the block's threads then serve those lanes in rank order,
+// thread j the ranks j, j + SPAWN_THREADS, .., so consecutive threads trace
+// the camera rays of consecutive queue samples (neighbouring pixels) and
+// every warp of the block traces full warps, while each lane's state stays
+// at its own position. aux (optional, [8, M]): d_u 0-2, t 3, sky 4-6, got 7
+// of each lane that took a sample, zero elsewhere.
+__global__ void __launch_bounds__(SPAWN_THREADS)
+spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, unsigned long long* __restrict__ scan,
+                     int tiles, float* __restrict__ aux) {
+  __shared__ int warp_sums[32];
+  __shared__ short order[SPAWN_TILE];  // places in the tile of the lanes that took samples
+  __shared__ unsigned long long ticket;
+  __shared__ unsigned tile_base;
+  __shared__ int n_miss;
   if (threadIdx.x == 0) {
-    long long next = cnt[0];
-    long long rem = total - next;
-    *base = next;
-    cnt[0] = next + (carry < rem ? carry : rem);
+    ticket = atomicAdd(scan, 1ull);
+    n_miss = 0;
   }
-}
-
-// Fresh lanes take queue samples in lane order (the plain cumsum's order),
-// trace their primary rays and either start a path (hit) or add the sky to
-// the film and stay fresh (miss). aux (optional, [8, M]): d_u 0-2, t 3,
-// sky 4-6, got 7 of each lane that took a sample.
-__global__ void __launch_bounds__(SPAWN_THREADS)
-spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const int* __restrict__ block_off,
-                     const long long* __restrict__ base, float* __restrict__ aux) {
-  __shared__ int warp_sums[32];
-  int m = q.m;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool fresh = i < m && q.is[I_ACTIVE * m + i] == 0;
-  int k = block_off[blockIdx.x] + block_inclusive_scan(fresh ? 1 : 0, warp_sums);
-  long long idx = *base + (long long)k - 1;
-  bool got = fresh && idx < q.total;
-  bool hit = false;
-  if (got) {
+  __syncthreads();
+  const int tile = (int)(ticket % (unsigned long long)tiles);
+  const unsigned epoch = (unsigned)(ticket / (unsigned long long)tiles);
+  const int m = q.m;
+  const int t0 = tile * SPAWN_TILE;
+  const int own = t0 + threadIdx.x * SPAWN_LANES;  // the thread's first lane
+  bool fresh[SPAWN_LANES];
+  int mine = 0;
+  for (int j = 0; j < SPAWN_LANES; ++j) {
+    fresh[j] = own + j < m && q.is[I_ACTIVE * m + own + j] == 0;
+    mine += fresh[j];
+  }
+  int n_fresh;
+  int rank = block_inclusive_scan(mine, warp_sums, n_fresh) - mine;  // 0-based, lane order
+  if (threadIdx.x < 32) {
+    const unsigned e = spawn_lookback(scan + 1, tile, epoch, n_fresh, q.cnt);
+    if (threadIdx.x == 0) {
+      tile_base = e;
+      if (tile == tiles - 1) {
+        const long long end = (long long)e + n_fresh;
+        q.cnt[C_NEXT] = end < q.total ? end : q.total;
+      }
+    }
+  }
+  __syncthreads();
+  const long long base = tile_base;
+  const long long left = q.total - base;
+  const int n_got = left <= 0 ? 0 : (left < n_fresh ? (int)left : n_fresh);
+  for (int j = 0; j < SPAWN_LANES; ++j) {
+    if (fresh[j] && rank < n_got) {
+      order[rank] = (short)(own + j - t0);
+    } else if (aux && own + j < m) {
+      for (int row = 0; row < 8; ++row) aux[row * m + own + j] = 0.0f;
+    }
+    rank += fresh[j];
+  }
+  __syncthreads();
+  int misses = 0;
+  for (int k = threadIdx.x; k < n_got; k += SPAWN_THREADS) {
+    const int i = t0 + order[k];
+    const long long idx = base + k;
     int slot = (int)(idx % q.npix);
     uint32_t pix = (uint32_t)slot;
     uint32_t smp = (uint32_t)(idx / q.npix) + r.sample_base;
@@ -181,7 +266,8 @@ spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const int* __restric
     V d_u = unit_eps(d);
     float t;
     int tri;
-    hit = trace(s, o, d_u, -1, false, t, tri);
+    const bool hit = trace(s, o, d_u, -1, false, t, tri);
+    misses += !hit;
     V sky = {0.0f, 0.0f, 0.0f};
     if (!hit || aux) sky = env_sample(s, d_u, r.hdr_clamp);
     if (hit) {
@@ -203,14 +289,12 @@ spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const int* __restric
       put3(aux, 4, m, i, sky);
       aux[7 * m + i] = 1.0f;
     }
-  } else if (aux && i < m) {
-    for (int row = 0; row < 8; ++row) aux[row * m + i] = 0.0f;
   }
-  int n_got = __syncthreads_count(got);
-  int n_miss = __syncthreads_count(got && !hit);
+  if (misses) atomicAdd(&n_miss, misses);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    count_add(q.cnt + 2, n_got);   // a primary ray per sample taken
-    count_add(q.cnt + 1, n_miss);  // a miss finishes its sample
+    count_add(q.cnt + C_RAYS, n_got);   // a primary ray per sample taken
+    count_add(q.cnt + C_DONE, n_miss);  // a miss finishes its sample
   }
 }
 
@@ -369,22 +453,21 @@ resolve_bounce_kernel(SceneArgs s, RenderArgs r, PoolArgs q, const float* __rest
 
 extern "C" {
 
-// One spawn round; block_cnt is scratch of ceil(M / 256) ints, base of one
-// int64; aux may be null.
-int spawn_primary(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q, int* block_cnt,
-                  long long* base, float* aux, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  int nb = (q->m + SPAWN_THREADS - 1) / SPAWN_THREADS;
-  spawn_count_kernel<<<nb, SPAWN_THREADS, 0, st>>>(q->is, q->m, block_cnt);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  spawn_offsets_kernel<<<1, SCAN_THREADS, 0, st>>>(block_cnt, nb, q->cnt, q->total, base);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
+// Words (u64) of the spawn's scratch for M lanes: the ticket counter and
+// one status word a tile.
+int spawn_scratch_words(int m) { return 1 + (m + SPAWN_TILE - 1) / SPAWN_TILE; }
+
+// One spawn round in one launch; scan: spawn_scratch_words(M) u64, zeroed
+// before the first round and kept for every later round of the same M
+// (never shared by two launches in flight); aux may be null.
+int spawn_primary(const SceneArgs* s, const RenderArgs* r, const PoolArgs* q,
+                  unsigned long long* scan, float* aux, void* stream) {
+  int tiles = spawn_scratch_words(q->m) - 1;
   size_t smem = walk_smem_bytes(*s, SPAWN_THREADS);
-  rc = smem_limit(spawn_primary_kernel, smem);
+  int rc = smem_limit(spawn_primary_kernel, smem);
   if (rc) return rc;
-  spawn_primary_kernel<<<nb, SPAWN_THREADS, smem, st>>>(*s, *r, *q, block_cnt, base, aux);
+  spawn_primary_kernel<<<tiles, SPAWN_THREADS, smem, (cudaStream_t)stream>>>(*s, *r, *q, scan,
+                                                                             tiles, aux);
   return (int)cudaGetLastError();
 }
 

@@ -9,19 +9,23 @@
 // n_px), the radiance SUM over spp jittered samples from sample_base, each
 // a camera ray and up to max_bounce uniform-sphere bounces (pdf 1/2pi,
 // folded away from the view direction) with multiplicative throughput,
-// emission and sky on the way, no NEE. Only the radiance rows of the TPU
-// kernel's [8, Mp] output mean something; this one writes [3, n_px].
+// emission and sky on the way, no NEE; the sums are added into the
+// window's rows of the film ([n_px, 3], one float add a channel, as the
+// plain version adds them). Only the radiance rows of the TPU kernel's
+// [8, Mp] output mean something.
 //
-// The design is the first megakernel's (not the redesigned mega.cu's
-// sliced state machine): one thread per pixel, a loop over its samples
-// (ascending, the plain version's order) and bounces,
-// the device functions of path.cuh (camera_dir, bvh_nearest_hit and its
-// packed walk tables and shared-memory stack, env_sample, uniform_sphere).
-// What bounds it on this card: divergent BVH traversal (up to 3 walks a
-// sample), as the megakernel; its bytes (the scene tables once, 12 bytes
-// out per pixel) are far below that. None of the TPU mechanics (one-hot
-// MXU gathers, cluster sweeps, 128-lane tiles) carry over. Deterministic:
-// no atomics.
+// One thread per pixel on a fixed grid, a loop over its samples
+// (ascending, the plain version's order) and bounces, the device functions
+// of path.cuh (camera_dir, bvh_nearest_hit and its packed walk tables and
+// shared-memory stack, env_sample, uniform_sphere). The megakernel's
+// structure did not pay here on the H100 (PERF.md): its sliced walks with
+// regeneration on a persistent grid measured 12-22% slower, one walk call
+// site on this grid no faster. At 1 spp a pixel's path is at most three
+// walks, too short for refills to pay. What bounds it on this card: divergent
+// BVH traversal, as the megakernel; its bytes (the scene tables once, the
+// band's sums read and written) are far below that. None of the TPU
+// mechanics (one-hot MXU gathers, cluster sweeps, 128-lane tiles) carry
+// over. Deterministic: a pixel belongs to one thread, no atomics.
 
 #include "path.cuh"
 
@@ -72,25 +76,27 @@ __device__ V preview_sample(const SceneArgs& s, const RenderArgs& r, uint32_t pi
 
 __global__ void __launch_bounds__(128)
 preview_render_kernel(SceneArgs s, RenderArgs r, int pix_offset, int n_px, int max_bounce,
-                      float* __restrict__ out) {
+                      float* __restrict__ band) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_px) return;
   uint32_t pix = (uint32_t)(pix_offset + i);
   V sum = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < r.spp; ++k)
     sum = sum + preview_sample(s, r, pix, r.sample_base + (uint32_t)k, max_bounce);
-  out[i] = sum.x;
-  out[n_px + i] = sum.y;
-  out[2 * n_px + i] = sum.z;
+  float* o = band + 3 * i;
+  o[0] = o[0] + sum.x;
+  o[1] = o[1] + sum.y;
+  o[2] = o[2] + sum.z;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Radiance sums of pixels [pix_offset, pix_offset + n_px) into out [3, n_px].
+// Adds the radiance sums of pixels [pix_offset, pix_offset + n_px) into
+// band [n_px, 3].
 int preview_render(const SceneArgs* s, const RenderArgs* r, int pix_offset, int n_px,
-                   int max_bounce, float* out, void* stream) {
+                   int max_bounce, float* band, void* stream) {
   int threads = 128;
   int blocks = (n_px + threads - 1) / threads;
   if (blocks == 0) return 0;
@@ -98,7 +104,7 @@ int preview_render(const SceneArgs* s, const RenderArgs* r, int pix_offset, int 
   int rc = smem_limit(preview_render_kernel, smem);
   if (rc) return rc;
   preview_render_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(*s, *r, pix_offset,
-                                                                         n_px, max_bounce, out);
+                                                                         n_px, max_bounce, band);
   return (int)cudaGetLastError();
 }
 

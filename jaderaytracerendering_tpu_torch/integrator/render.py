@@ -163,14 +163,14 @@ def _preview_window(sd, cam, cfg: RenderConfig, out: torch.Tensor, p0: int,
                     sample_base: int, sppb: int) -> None:
     """Adds the preview radiance sums over ``sppb`` samples from
     ``sample_base`` of the pixels p0 .. p0+len(out)-1 into ``out`` [n, 3]
-    in place: engine ``mega`` in one launch of the preview kernel, any
-    other through the torch preview integrator (``render_window``)."""
+    in place: engine ``mega`` in one launch of the preview kernel, which
+    adds into ``out`` itself, any other through the torch preview
+    integrator (``render_window``)."""
     if cfg.engine == "mega":
         from . import mega as mega_mod
 
         eye, rot = mega_mod.host_camera(cam)
-        out += megak.render_preview_mega(sd, eye, rot, cfg, sample_base, sppb, p0,
-                                         out.shape[0]).T
+        megak.render_preview_mega(sd, eye, rot, cfg, sample_base, sppb, out, p0)
     else:
         eye, rot = camera_mod.camera_tensors(cam, sd.device)
         render_window(sd, eye, rot, out, p0, sample_base, cfg, sppb)

@@ -67,7 +67,8 @@ def library() -> ctypes.CDLL:
     for name, args in (("mega_render", [vp, vp, vp, vp, vp]),
                        ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
                        ("postfx", [vp, vp, ci, ci, ci, ci, cf, ci, cf, cf, ci, vp]),
-                       ("spawn_primary", [vp, vp, vp, vp, vp, vp, vp]),
+                       ("spawn_scratch_words", [ci]),
+                       ("spawn_primary", [vp, vp, vp, vp, vp, vp]),
                        ("front_bounce", [vp, vp, vp, vp, vp, vp, vp]),
                        ("trace_segments", [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]),
                        ("resolve_bounce", [vp, vp, vp, vp, vp, vp])):

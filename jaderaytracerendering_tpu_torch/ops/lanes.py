@@ -11,10 +11,11 @@ refraction also carry the bounce's march results from the front step to
 the resolve step: ``rf`` f32 [9, M] (exit direction rows 0-2, exit point
 3-5, rate 6-8) and ``ri`` i32 [2, M] (escaped, last triangle), written
 for the lanes that take direct refraction this bounce and zero
-elsewhere (None without refraction). Samples are queued
-as ``index = sample * npix + pixel`` for ``total`` indices; sample ids
-start at ``sample_base``. The kernels and the plain versions update the
-state in place.
+elsewhere (None without refraction). ``spawn_scan`` is the spawn kernel's
+scratch (a ticket counter and one status word per tile of its scan).
+Samples are queued as ``index = sample * npix + pixel`` for ``total``
+indices; sample ids start at ``sample_base``. The kernels and the plain
+versions update the state in place.
 
 The JAX package packs the same carry into five TPU buffers with [16, M]
 triangle and material rows (integrator/pool.py); here the rows are
@@ -52,6 +53,10 @@ class PoolState:
     cnt: torch.Tensor
     rf: torch.Tensor | None = None
     ri: torch.Tensor | None = None
+    # the spawn kernel's scan scratch (ops/spawn_front.py), made at its first
+    # round on the card; no lane state, so a clone shares it (its rounds run
+    # one after another on the stream, at the same M)
+    spawn_scan: torch.Tensor | None = None
     _args: tuple | None = None
 
     @staticmethod

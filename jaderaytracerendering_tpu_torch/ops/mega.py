@@ -60,41 +60,43 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg,
 
 
 def render_preview_mega_plain(sd, eye, rot, cfg, sample_base: int, spp: int,
-                              pix_offset: int = 0, n_px: int | None = None) -> torch.Tensor:
-    """The plain PyTorch version: [3, n_px] f32, the preview radiance sums
-    over samples sample_base .. sample_base+spp-1 of pixels pix_offset ..
-    pix_offset+n_px-1 (integrator/preview.trace_preview_p with
-    ``cfg.preview_bounces`` bounces, the plain BVH walk on any device)."""
+                              band: torch.Tensor, pix_offset: int = 0) -> torch.Tensor:
+    """The plain PyTorch version: adds the preview radiance sums over
+    samples sample_base .. sample_base+spp-1 of pixels pix_offset ..
+    pix_offset+len(band)-1 into ``band`` [n_px, 3] f32 in place and returns
+    it (integrator/preview.trace_preview_p with ``cfg.preview_bounces``
+    bounces, the plain BVH walk on any device)."""
     from ..integrator.render import render_window
     from ..integrator.wavefront import nearest_planes_plain
 
-    n_px = cfg.width * cfg.height - pix_offset if n_px is None else n_px
-    out = torch.zeros((n_px, 3), dtype=torch.float32, device=sd.device)
     if spp > 0:
-        render_window(sd, eye, rot, out, pix_offset, sample_base,
+        render_window(sd, eye, rot, band, pix_offset, sample_base,
                       cfg.replace(integrator="preview"), spp, query=nearest_planes_plain)
-    return out.T.contiguous()
+    return band
 
 
 def render_preview_mega(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
-                        spp: int, pix_offset: int = 0, n_px: int | None = None) -> torch.Tensor:
+                        spp: int, band: torch.Tensor, pix_offset: int = 0) -> torch.Tensor:
     """One progressive preview frame over the pixel window [pix_offset,
-    pix_offset + n_px) (default: to the end of the film) -> [3, n_px] f32
-    radiance sums of ``spp`` samples from ``sample_base``. ``eye`` [3] and
-    ``rot`` [4, 4] are the camera."""
+    pix_offset + len(band)): adds the radiance sums of ``spp`` samples from
+    ``sample_base`` into ``band`` [n_px, 3] f32 (the window's rows of a
+    film) in place and returns it. ``eye`` [3] and ``rot`` [4, 4] are the
+    camera."""
     npix = cfg.width * cfg.height
-    n_px = npix - pix_offset if n_px is None else int(n_px)
-    if not (0 <= pix_offset and 0 <= n_px and pix_offset + n_px <= npix):
+    n_px = int(band.shape[0])
+    if not (0 <= pix_offset and pix_offset + n_px <= npix):
         raise ValueError(f"pixel window [{pix_offset}, {pix_offset + n_px}) outside "
                          f"the film's {npix} pixels")
     if sd.device.type == "cpu":
-        return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, pix_offset, n_px)
+        return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, band, pix_offset)
+    kernels.check_tensor("band", band, torch.float32, (n_px, 3), sd.device)
+    if spp <= 0 or n_px == 0:
+        return band
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
     r = kernels.render_args(eye, rot, cfg, sample_base, spp)
-    out = torch.empty((3, n_px), dtype=torch.float32, device=sd.device)
     rc = kernels.library().preview_render(ctypes.byref(s), ctypes.byref(r), int(pix_offset),
-                                          n_px, int(cfg.preview_bounces), kernels.ptr(out),
+                                          n_px, int(cfg.preview_bounces), kernels.ptr(band),
                                           kernels.stream(sd.device))
     kernels.check_rc(rc, "render_preview_mega")
     LAUNCHES["render_preview_mega"] += 1
-    return out
+    return band

@@ -84,19 +84,20 @@ def spawn_primary_plain(st: PoolState, aux: torch.Tensor | None = None) -> None:
 
 def spawn_primary(st: PoolState, aux: torch.Tensor | None = None) -> None:
     """One spawn round on ``st`` in place (see the module docstring). CUDA
-    state launches the kernel; CPU state runs the plain version."""
+    state launches the kernel, one launch a round; CPU state runs the plain
+    version."""
     if st.fs.device.type == "cpu":
         return spawn_primary_plain(st, aux)
     s, r, q = st.args()
     dev = st.sd.device
-    nb = -(-st.m // 256)  # the kernel's blocks of 256 lanes
-    block_cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
-    base = torch.empty((1,), dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    if st.spawn_scan is None:  # zeroed once; the kernel keeps it across rounds
+        st.spawn_scan = torch.zeros((lib.spawn_scratch_words(st.m),), dtype=torch.int64,
+                                    device=dev)
     if aux is not None:
         kernels.check_tensor("aux", aux, torch.float32, (8, st.m), dev)
     p = kernels.ptr
-    rc = kernels.library().spawn_primary(s, r, q, p(block_cnt), p(base),
-                                         None if aux is None else p(aux),
-                                         kernels.stream(dev))
+    rc = lib.spawn_primary(s, r, q, p(st.spawn_scan), None if aux is None else p(aux),
+                           kernels.stream(dev))
     kernels.check_rc(rc, "spawn_primary")
     LAUNCHES["spawn_primary"] += 1

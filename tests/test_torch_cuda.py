@@ -153,6 +153,48 @@ def test_spawn_primary_kernel_matches_plain(pool_state):
     torch.testing.assert_close(aux_k[:3, got], aux_p[:3, got], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("m,share,queue", [
+    pytest.param(4096, 0.05, "plenty", id="sparse"),
+    pytest.param(4096, 1.0, "plenty", id="dense"),
+    pytest.param(4096, 0.5, 1000, id="queue_out_in_a_tile"),
+    pytest.param(1000, 0.5, "half", id="m_not_a_multiple_of_the_tile"),
+])
+def test_spawn_kernel_matches_plain_over_two_rounds(jade_cuda, m, share, queue):
+    """Two spawn rounds back to back (the scan's scratch carried from one
+    to the next) against the plain spawn: fresh lanes scattered (5%) or
+    all fresh, the queue running out at lane 1000 (inside a tile) or
+    halfway through the fresh lanes, M = 1000 (a partial last tile)."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=32, height=32, spp=64, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    total = 32 * 32 * 64
+    g = np.random.default_rng(7)
+    fresh = g.uniform(size=m) < share
+    st = PoolState.create(sd, cfg, eye, rot, m, total, 0)
+    st.is_[0] = torch.tensor((~fresh).astype(np.int32), device="cuda")
+    for row in (3, 4, 5):  # slot, pix, smp of the live lanes
+        st.is_[row] = torch.tensor(g.integers(0, 32 * 32, m).astype(np.int32), device="cuda")
+    if queue == "plenty":
+        st.cnt[0] = 5
+    elif queue == "half":
+        st.cnt[0] = total - int(fresh.sum()) // 2
+    else:
+        st.cnt[0] = total - int(fresh[:queue].sum())
+    k, p = st.clone(), st.clone()
+    for _ in range(2):
+        aux_k = torch.empty((8, m), device="cuda")
+        aux_p = torch.empty_like(aux_k)
+        before = kernels.LAUNCHES["spawn_primary"]
+        spawn_front.spawn_primary(k, aux_k)
+        assert kernels.LAUNCHES["spawn_primary"] == before + 1
+        spawn_front.spawn_primary_plain(p, aux_p)
+        assert torch.equal(aux_k[7], aux_p[7])
+        _same_state(k, p)
+        got = aux_p[7] != 0
+        torch.testing.assert_close(aux_k[:3, got], aux_p[:3, got], rtol=0, atol=1e-6)
+    assert int(k.cnt[0]) == (total if queue != "plenty" else 5 + int(k.cnt[2]))
+
+
 def test_render_film_pool_on_cuda_uses_the_kernels(jade_cuda):
     ds, sd = jade_cuda
     cfg = RenderConfig(width=32, height=32, spp=3, max_depth=5)
@@ -300,17 +342,44 @@ def test_refract_pool_equals_mega_on_cuda(glass_cuda):
 
 
 def test_preview_kernel_matches_plain(jade_cuda):
+    """The preview kernel adds its sums into the band it is given, bit for
+    bit as the plain version does, over the whole film and a window."""
     ds, sd = jade_cuda
     cfg = RenderConfig(width=32, height=32, spp=2, integrator="preview")
     eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
-    for window in ((0, None), (256, 300)):
+    g = np.random.default_rng(5)
+    for p0, n_px in ((0, 32 * 32), (256, 300)):
+        base = torch.tensor(g.uniform(0, 2, (n_px, 3)).astype(np.float32), device="cuda")
         before = kernels.LAUNCHES["render_preview_mega"]
-        k = megak.render_preview_mega(sd, eye, rot, cfg, 5, cfg.spp, *window)
+        band = base.clone()
+        assert megak.render_preview_mega(sd, eye, rot, cfg, 5, cfg.spp, band, p0) is band
         assert kernels.LAUNCHES["render_preview_mega"] == before + 1
-        p = megak.render_preview_mega_plain(sd, eye, rot, cfg, 5, cfg.spp, *window)
+        p = megak.render_preview_mega_plain(sd, eye, rot, cfg, 5, cfg.spp, base.clone(), p0)
         torch.cuda.synchronize()
-        assert k.shape == p.shape == (3, window[1] or 32 * 32)
-        torch.testing.assert_close(k, p, rtol=1e-3, atol=1e-4 * float(p.abs().max()))
+        assert torch.equal(band, p) and not torch.equal(band, base)
+
+
+@pytest.mark.parametrize("width,height,spp,p0,n_px", [
+    pytest.param(640, 480, 1, 0, 640 * 480, id="several_block_waves"),
+    pytest.param(32, 32, 3, 0, 32 * 32, id="spp_3"),
+    pytest.param(32, 32, 2, 101, 333, id="odd_window"),
+])
+def test_preview_kernel_matches_plain_bit_for_bit(jade_cuda, width, height, spp, p0, n_px):
+    """A window of more pixels than the card runs threads at once (640x480:
+    blocks run in several waves), several samples a pixel summed in order
+    (spp 3), a window that is not a multiple of the block at an odd
+    offset; each added into a band of ones."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=width, height=height, spp=spp, integrator="preview")
+    if n_px == width * height > 1024:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert n_px > sms * 2048
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    p = megak.render_preview_mega_plain(sd, eye, rot, cfg, 2, spp,
+                                        torch.ones((n_px, 3), device="cuda"), p0)
+    k = megak.render_preview_mega(sd, eye, rot, cfg, 2, spp,
+                                  torch.ones((n_px, 3), device="cuda"), p0)
+    assert torch.equal(k, p)
 
 
 def test_preview_banded_rotation_on_cuda(jade_cuda):

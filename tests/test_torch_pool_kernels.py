@@ -59,10 +59,10 @@ def jade():
             t, tscene.assemble(t.objects, t.env_map, device="cpu"))
 
 
-def _state(st_scene, cam, total):
+def _state(st_scene, cam, total, m=M):
     cfg = TConfig(**CFG)
     eye, rot = tcamera.camera_tensors(cam, "cpu")
-    return PoolState.create(st_scene, cfg, eye, rot, M, total, 5), cfg
+    return PoolState.create(st_scene, cfg, eye, rot, m, total, 5), cfg
 
 
 def test_cumsum_indicator_matches_jax():
@@ -71,17 +71,39 @@ def test_cumsum_indicator_matches_jax():
                                   np.asarray(jscan.cumsum_indicator(jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("jitter", ["cuda", "gl"])
-def test_spawn_matches_pallas_spawn(jade, jitter):
+SPAWN_CASES = [  # jitter, lanes, fresh share, queue left: "half" of the fresh
+    # lanes, "plenty", or the lane at which it runs out
+    pytest.param("cuda", M, 0.5, "half", id="cuda"),
+    pytest.param("gl", M, 0.5, "half", id="gl"),
+    pytest.param("cuda", 700, 0.05, "plenty", id="sparse"),
+    pytest.param("gl", 700, 1.0, 300, id="all"),
+    pytest.param("cuda", 700, 0.5, 400, id="cut_in_block"),
+]
+
+
+@pytest.mark.parametrize("jitter,m,share,queue", SPAWN_CASES)
+def test_spawn_matches_pallas_spawn(jade, jitter, m, share, queue):
+    """The plain spawn against the Pallas spawn at the fresh patterns the
+    kernel's scan and compaction are sensitive to: scattered (5%), half,
+    all fresh; M = 700 is a partial 1024-lane tile of the kernel, and the
+    queue runs out inside it at lane 300 or 400, in the second warp's 256
+    lanes (a thread scans 8)."""
     j, _, t, st_scene = jade
     g = np.random.default_rng(1)
     npix = CFG["width"] * CFG["height"]
-    fresh = g.integers(0, 2, M).astype(np.int32)
-    old = g.integers(0, npix, (3, M)).astype(np.int32)
-    total, n_fresh = npix * CFG["spp"], int(fresh.sum())
-    nxt = total - n_fresh // 2  # the queue runs out inside the call
+    fresh = (g.uniform(size=m) < share).astype(np.int32)
+    old = g.integers(0, npix, (3, m)).astype(np.int32)
+    total, n_fresh = npix * 64, int(fresh.sum())
+    if queue == "half":
+        nxt = total - n_fresh // 2
+    elif queue == "plenty":
+        nxt = total - n_fresh - 7
+    else:  # the fresh lanes before lane `queue` take the last samples
+        nxt = total - int(fresh[:queue].sum())
+    want_got = fresh != 0
+    want_got &= np.cumsum(fresh) <= total - nxt
 
-    su = np.zeros((8, M), np.int32)
+    su = np.zeros((8, m), np.int32)
     su[0], su[1:4] = fresh, old
     ints = np.zeros((1, 8), np.int32)
     ints[0, :3] = (nxt, total, 5)
@@ -93,23 +115,25 @@ def test_spawn_matches_pallas_spawn(jade, jitter):
         CFG["height"], CFG["seed"], jitter, -1.5, interpret=True)
     meta, daux = np.asarray(meta), np.asarray(daux)
 
-    st, _ = _state(st_scene, t.camera, total)
+    st, _ = _state(st_scene, t.camera, total, m)
     st.cfg = st.cfg.replace(jitter=jitter)
     st.is_[I_ACTIVE] = torch.from_numpy(1 - fresh)
     st.is_[I_SLOT:I_SMP + 1] = torch.from_numpy(old)
     st.cnt[C_NEXT] = nxt
-    aux = torch.empty((8, M))
+    aux = torch.empty((8, m))
     kernels.reset_launches()
     spawn_front.spawn_primary(st, aux)
     assert kernels.LAUNCHES["spawn_primary"] == 0
 
     got = aux[7].numpy() != 0
     np.testing.assert_array_equal(got, meta[0] != 0)
-    assert got.sum() == n_fresh // 2
+    np.testing.assert_array_equal(got, want_got)
+    assert got.sum() == min(n_fresh, total - nxt) > 0
     for row, jrow in ((I_SLOT, 1), (I_PIX, 2), (I_SMP, 3)):
         np.testing.assert_array_equal(st.is_[row].numpy(), meta[jrow])
     consumed = min(int(meta[4, -1]), total - nxt)
-    assert int(st.cnt[C_NEXT]) == nxt + consumed == total
+    assert int(st.cnt[C_NEXT]) == nxt + consumed == (nxt + n_fresh if queue == "plenty"
+                                                      else total)
     np.testing.assert_allclose(aux[0:3].numpy()[:, got], daux[0:3][:, got], atol=1e-6)
     # every sample taken is a useful ray; misses finish at once
     assert int(st.cnt[C_RAYS]) == got.sum()

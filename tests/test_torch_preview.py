@@ -166,9 +166,11 @@ def test_banded_display_matches_jax(scenes):
 
 def test_banded_frame_adds_in_place_and_windows_agree(scenes):
     """A banded frame adds its band to the film passed in (no copy of the
-    film); the preview kernel's plain version over a window equals those
-    rows of the whole film's (to the file's tolerance: the CPU's vector
-    math rounds a lane by its place in the batch)."""
+    film); the preview kernel's wrapper (its plain version on CPU tensors)
+    adds a window's sums into the band it is given, in place, and those
+    sums equal the same rows of the whole film's (to the file's tolerance:
+    the CPU's vector math rounds a lane by its place in the batch); a
+    window past the film's end is refused."""
     _, _, t, st = scenes
     cfg = TConfig(**SIZE, engine="mega", preview_bands=4)
     film = trender.render_film_preview(st, t.camera, cfg.replace(preview_bands=1))
@@ -180,7 +182,14 @@ def test_banded_frame_adds_in_place_and_windows_agree(scenes):
     assert band.abs().sum() > 0 and torch.equal(film.accum.reshape(-1, 3)[:128],
                                                 before.reshape(-1, 3)[:128])
     eye, rot = tcamera.camera_tensors(t.camera, "cpu")
-    whole = tmega.render_preview_mega_plain(st, eye, rot, cfg, 3, 2)
-    window = tmega.render_preview_mega_plain(st, eye, rot, cfg, 3, 2, 100, 37)
-    assert window.shape == (3, 37)
-    _close(window.numpy(), whole[:, 100:137].numpy())
+    whole = tmega.render_preview_mega(st, eye, rot, cfg, 3, 2, torch.zeros((256, 3)))
+    base = torch.full((37, 3), 0.5)
+    band = base.clone()
+    kernels.reset_launches()
+    assert tmega.render_preview_mega(st, eye, rot, cfg, 3, 2, band, 100) is band
+    assert kernels.LAUNCHES["render_preview_mega"] == 0  # CPU: the plain version
+    _close((band - base).numpy(), whole[100:137].numpy())
+    plain = tmega.render_preview_mega_plain(st, eye, rot, cfg, 3, 2, base.clone(), 100)
+    assert torch.equal(plain, band)
+    with pytest.raises(ValueError, match="outside"):
+        tmega.render_preview_mega(st, eye, rot, cfg, 3, 2, torch.zeros((37, 3)), 250)
