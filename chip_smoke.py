@@ -15,7 +15,9 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      useful rays exact, every pixel within MEGA_RTOL / MEGA_ATOL_FRAC;
   4. main path: the render CLI at its defaults (jade, 20k statue
      triangles, 1024x1024, 16 spp, depth 16) through the megakernel, with
-     the launch counter, the film and the BMP checked, and the film held
+     the launch counter, the film and the BMP checked, its scene built by
+     the native SAH builder (asserted; its seconds beside those of the
+     NumPy builder on the same scene), and the film held
      against the plain version on a random subset of 4096 pixels (as in
      phase 3); the main path's bound (the subset's box, triangle and shading
      operations scaled to the film; the tables and the output) and the
@@ -50,19 +52,25 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      adding into a film of ones, asserted bit for bit; then a 4-band
      rotation through the kernel equal to one full frame through it, bit
      for bit;
- 12. postfx vs plain: phase 4's 1024^2 film in the modes aces, reinhard
-     and none (and flipped), u8 within 1, timed;
+ 12. postfx vs plain, byte for byte (0 u8 steps asserted): phase 4's
+     1024^2 film and ragged films (7x1021, 5x13) seen through views at
+     float offsets 0-3 (a data pointer not 16-byte aligned), in the modes
+     aces, reinhard and none, both flips, odd spans, one and two counts,
+     and displays at byte offsets 0 and 1, and every float in [0, 2] as
+     a channel's sum (count 1, no tone map: the power and quantisation on
+     every value below the clamp); the kernel timed at 1024^2
+     (aces, flipped; and a banded display's split) beside its bound;
  13. the preview main path: the preview CLI at its defaults (jade 20k,
      1024x1024, 1 spp a frame, 2 bounces, 4 bands) for 8 headless frames,
      with the launch counters, the film against the plain preview on
      random pixels, the last frame shown and the banded display of each
-     frame of a rotation (two postfx launches over two spans, two counts)
-     against the plain postfx band by band, and the written image
+     frame of a rotation (one postfx launch over two spans, two counts)
+     against the plain postfx band by band (0 u8 steps), and the written image
      checked; kernel ms per banded frame, its bound (the walks of a random
      subset of the band's pixels counted and scaled) and postfx ms; then 64
      frames for the steady frames per second, and 64 more under
      torch.profiler for the device's idle share in the steady frames and
-     the kernels they ran (one preview launch a frame, at most two postfx,
+     the kernels they ran (one preview and one postfx launch a frame,
      nothing else).
 
 A kernel's device time comes from CUDA events around calls queued behind
@@ -83,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import pathlib
@@ -128,8 +137,11 @@ BOX_OPS, TRI_OPS = 25, 57
 FRONT_OPS, RESOLVE_OPS, SPAWN_OPS = 150, 300, 80
 # the preview kernel's shading per sample outside its walks (camera ray,
 # two bounces of sampling, fold and weights, the env lookups), and the
-# postfx kernel's per pixel (scale, ACES, power, quantize on 3 channels)
-PREVIEW_OPS, POSTFX_OPS = 150, 60
+# postfx kernel's per pixel, counted from its SASS on the H100: per
+# channel the scale, ACES with its IEEE division (~17), powf's log2 and
+# exp2 in extended precision (~69, an FFMA counted as two) and the
+# quantisation (~4)
+PREVIEW_OPS, POSTFX_OPS = 150, 270
 TIMED_CALLS = 5                  # timed calls of a pool kernel that mutates its
                                  # state, each on its own copy
 SPIN_CYCLES = 100_000_000        # device_ms_each: ~50 ms of spin at the H100's clock,
@@ -293,6 +305,20 @@ def banded_display_plain(accum, frame_idx: int, bands: int, spp: int, mode: str)
         postfx.postfx_plain(accum, n, mode, flip=True, span=(b * band_px, (b + 1) * band_px),
                             out=out)
     return out
+
+
+def postfx_cases(h: int, w: int) -> list:
+    """(flip, span, split) cases of the postfx check on an h x w film:
+    the whole film both ways, odd spans, and a split (two counts) inside a
+    row, on a row's edge and at a span's start."""
+    n = h * w
+    return [(False, None, None), (True, None, None), (True, (3, n - 5), None),
+            (True, None, w + 3), (False, (w - 1, n - 2), 2 * w + 1), (True, (5, 9), 5)]
+
+
+def u8_steps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest difference between two u8 tensors, in steps."""
+    return int((torch.maximum(a, b) - torch.minimum(a, b)).max())
 
 
 def ptxas_registers(log_text: str) -> dict:
@@ -622,6 +648,12 @@ def main() -> None:
         if size != want or film.accum.shape != (cfg4.height, cfg4.width, 3):
             raise AssertionError(f"main path BMP {size} bytes (want {want}), "
                                  f"film {tuple(film.accum.shape)}")
+    if stats["bvh_builder"] != "native":
+        raise AssertionError(f"main path: the render CLI built its BVH with the "
+                             f"{stats['bvh_builder']!r} builder, not the native one")
+    # the scene build (the CLI's seconds) beside each builder's on the same scene
+    build_ms4 = {b: host_ms(lambda b=b: assemble(ds.objects, ds.env_map, bvh_backend=b,
+                                                 device=dev)) for b in ("native", "numpy")}
     secs = stats["seconds"]
     samples = cfg4.width * cfg4.height * cfg4.spp
     mega_film, mega_rays, mega_secs = film.accum, stats["rays"], secs
@@ -629,7 +661,9 @@ def main() -> None:
         f"{cfg4.width}x{cfg4.height} {cfg4.spp}spp depth {cfg4.max_depth}: "
         f"{secs:.3f} s, {samples / secs / 1e6:.3f} Msamples/s, "
         f"{stats['rays'] / secs / 1e6:.3f} useful Mrays/s, launches {launches}, {n_neg} "
-        f"negative channel sums, BMP {size} bytes [{gpu}]")
+        f"negative channel sums, BMP {size} bytes; scene built by the {stats['bvh_builder']} "
+        f"BVH builder in {stats['scene_build_s']:.3f} s (assemble again: native "
+        f"{build_ms4['native'] / 1e3:.3f} s, numpy {build_ms4['numpy'] / 1e3:.3f} s) [{gpu}]")
 
     # the main path's film against the plain version on random pixels
     npix = cfg4.width * cfg4.height
@@ -906,27 +940,66 @@ def main() -> None:
 
     # ---- phase 12: postfx against its plain version ------------------------
     film12 = mega_film.contiguous()
-    errs12 = {}
-    for mode in ("aces", "reinhard", "none"):
-        for flip in (False, True):
-            a = postfx.postfx(film12, cfg4.spp, mode, flip=flip)
-            b = postfx.postfx_plain(film12, cfg4.spp, mode, flip=flip)
-            e = int((a.int() - b.int()).abs().max())
-            if e > 1:
-                raise AssertionError(f"phase 12 postfx {mode} flip={flip}: u8 differ by {e}")
-            errs12[(mode, flip)] = e
+    g12 = np.random.default_rng(12)
+    n12 = err12 = 0  # err12: the largest u8 step between kernel and plain over every case
+    for h, w in ((cfg4.height, cfg4.width), (7, 1021), (5, 13)):
+        for offset in (0, 1, 2, 3):  # float offsets: only 0 is 16-byte aligned
+            buf = torch.empty(3 * h * w + 4, device=dev)
+            if (h, w) == film12.shape[:2]:
+                buf[offset:offset + film12.numel()] = film12.reshape(-1)
+            else:
+                buf[:] = torch.tensor(g12.uniform(-1, 60, buf.numel()).astype(np.float32),
+                                      device=dev)
+            accum = buf[offset:offset + 3 * h * w].view(h, w, 3)
+            for mode, (flip, span, split), out_off in itertools.product(
+                    ("aces", "reinhard", "none"), postfx_cases(h, w), (0, 1)):
+                kw = dict(flip=flip, span=span, split=split,
+                          count_hi=None if split is None else cfg4.spp - 1)
+                outs = [torch.full((3 * h * w + 1,), 7, dtype=torch.uint8, device=dev)
+                        for _ in range(2)]
+                for fn, o in zip((postfx.postfx, postfx.postfx_plain), outs):
+                    fn(accum, cfg4.spp, mode, out=o[out_off:out_off + 3 * h * w].view(h, w, 3),
+                       **kw)
+                err12 = max(err12, u8_steps(*outs))
+                if not torch.equal(*outs):
+                    raise AssertionError(
+                        f"phase 12 postfx {h}x{w} offset {offset} {mode} flip={flip} span={span} "
+                        f"split={split} display offset {out_off}: "
+                        f"{int((outs[0] != outs[1]).sum())} bytes differ from the plain version")
+                n12 += 1
+    # every float in [0, 2] as a channel's sum, count 1, no tone map: the
+    # kernel's power and quantisation against the plain version's on every
+    # value they can take below the clamp (above 2 both give 255)
+    n_vals12 = (1 << 30) + 1  # the bit patterns of 0.0 .. 2.0
+    chunk12 = 3 << 26
+    for lo in range(0, n_vals12, chunk12):
+        bits = torch.arange(lo, lo + chunk12, dtype=torch.int32, device=dev).clamp_(max=1 << 30)
+        vals = bits.view(torch.float32).view(1, chunk12 // 3, 3)
+        k12, p12 = postfx.postfx(vals, 1, "none"), postfx.postfx_plain(vals, 1, "none")
+        err12 = max(err12, u8_steps(k12, p12))
+        if not torch.equal(k12, p12):
+            bad = (k12 != p12).reshape(-1).nonzero()[:4].reshape(-1)
+            raise AssertionError(f"phase 12 postfx: channel values {vals.reshape(-1)[bad].tolist()}"
+                                 f" give {k12.reshape(-1)[bad].tolist()}, the plain version "
+                                 f"{p12.reshape(-1)[bad].tolist()}")
+    del bits, vals, k12, p12
     out12 = torch.empty(film12.shape, dtype=torch.uint8, device=dev)
+    npix4 = cfg4.width * cfg4.height
+    split12 = npix4 * 3 // 4  # a banded frame's display: the fourth band trails
     ms12 = device_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12))
+    banded_ms12 = device_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12,
+                                                  split=split12, count_hi=cfg4.spp - 1))
     call_ms12 = cuda_ms(lambda: postfx.postfx(film12, cfg4.spp, "aces", flip=True, out=out12),
                         reps=20)
     plain_ms12 = host_ms(lambda: postfx.postfx_plain(film12, cfg4.spp, "aces", flip=True))
-    npix4 = cfg4.width * cfg4.height
     bound12 = bound(npix4 * 15, npix4 * POSTFX_OPS)
-    err12 = max(errs12.values())
-    log(f"phase 12 postfx vs plain: {cfg4.width}x{cfg4.height} film, aces/reinhard/none, "
-        f"plain and flipped: max u8 diff {err12} ({sum(errs12.values())} of 6 cases off by "
-        f"one); kernel {ms12:.4f} ms (device time; {call_ms12:.4f} ms a call from "
-        f"Python), plain torch {plain_ms12:.2f} ms, bound {bound12[0]:.4f} ms "
+    log(f"phase 12 postfx vs plain: {n12} cases ({cfg4.width}x{cfg4.height} main-path film, "
+        f"7x1021 and 5x13 random films; views at float offsets 0-3; aces/reinhard/none; both "
+        f"flips, odd spans, one and two counts; displays at byte offsets 0 and 1; and every "
+        f"float in [0, 2] as a channel, {n_vals12} values, count 1, no tone map): equal byte "
+        f"for byte, largest step {err12}; kernel at {cfg4.width}x{cfg4.height}, aces, flipped: {ms12:.5f} ms device "
+        f"time ({call_ms12:.4f} ms a call from Python), with a split and two counts "
+        f"{banded_ms12:.5f} ms; plain torch {plain_ms12:.2f} ms, bound {bound12[0]:.5f} ms "
         f"({bound12[1]}) [{gpu}]")
 
     # ---- phase 13: the preview main path through the CLI -------------------
@@ -937,7 +1010,7 @@ def main() -> None:
         launches13 = dict(kernels.LAUNCHES)
         size13 = os.path.getsize(out13)
     if (launches13["render_preview_mega"] != PREVIEW_MAIN_FRAMES
-            or launches13["postfx"] < PREVIEW_MAIN_FRAMES or launches13["mega_render"]):
+            or launches13["postfx"] != PREVIEW_MAIN_FRAMES or launches13["mega_render"]):
         raise AssertionError(f"preview main path launches {launches13}")
     if size13 != want or film13.count != PREVIEW_MAIN_FRAMES // 4:
         raise AssertionError(f"preview main path: BMP {size13} bytes (want {want}), film "
@@ -971,7 +1044,7 @@ def main() -> None:
         disp_k = trender.display_banded(film13.accum, f, 4, pmain.spp, pmain.tonemap)
         disp_p = banded_display_plain(film13.accum, f, 4, pmain.spp, pmain.tonemap)
         disp_err13 = max(disp_err13, int((disp_k.int() - disp_p.int()).abs().max()))
-    if disp_err13 > 1:
+    if disp_err13:
         raise AssertionError(f"phase 13: the banded display differs from the plain postfx "
                              f"by {disp_err13} u8 steps")
     # the steady state: 64 frames, then 64 more traced; the first frames
@@ -984,11 +1057,13 @@ def main() -> None:
     fps_steady13, fps_traced13 = ((len(i["frame_s"]) - warm) / sum(i["frame_s"][warm:])
                                   for i in (steady13, traced13))
     idle13, window13 = device_idle_share(prof13, "preview_render_kernel", warm)
-    # a steady banded frame: one preview launch, one or two postfx, no other kernel
+    # a steady banded frame: one preview launch, one postfx, no other kernel
+    # (the window ends where the last frame's preview launch starts, so it
+    # holds one postfx launch fewer than preview launches)
     ran13 = device_kernels(prof13, "preview_render_kernel", warm)
     n_prev13 = sum(v for k, v in ran13.items() if "preview_render_kernel" in k)
     n_post13 = sum(v for k, v in ran13.items() if "postfx_kernel" in k)
-    if (n_prev13 != PREVIEW_STEADY_FRAMES - warm or n_post13 > 2 * n_prev13
+    if (n_prev13 != PREVIEW_STEADY_FRAMES - warm or n_post13 != n_prev13 - 1
             or n_prev13 + n_post13 != sum(ran13.values())):
         raise AssertionError(f"phase 13: the steady frames ran {ran13}")
     log(f"phase 13 preview main path: jade {MAIN_TRIS} {cfg4.width}x{cfg4.height}, 1 spp a "
@@ -1000,8 +1075,8 @@ def main() -> None:
         f"u8 diff {disp_err13}; render_preview_mega {frame_ms13:.4f} ms per banded frame "
         f"({band_px} pixels; bound {bound13[0]:.5f} ms by {bound13[1]}: the "
         f"{ids13.numel()}-pixel subset's {work13['boxes']} box and {work13['tris']} "
-        f"triangle tests x {scale13:.0f}) and postfx {ms12:.4f} ms per full display (device "
-        f"time); BMP {size13} bytes [{gpu}]")
+        f"triangle tests x {scale13:.0f}) and postfx {banded_ms12:.5f} ms per banded display "
+        f"(one launch, two counts; device time); BMP {size13} bytes [{gpu}]")
     log(f"phase 13 steady state: {PREVIEW_STEADY_FRAMES} frames, frames {warm + 1}-"
         f"{PREVIEW_STEADY_FRAMES}: {fps_steady13:.1f} frames/s (CLI wall clock); traced run: "
         f"{fps_traced13:.1f} frames/s under torch.profiler, device idle {100 * idle13:.1f}% of "
@@ -1066,6 +1141,7 @@ def main() -> None:
         "launches": launches13["postfx"], "max_abs_err": err12, "ms": ms12,
         "plain_ms": plain_ms12, "bound_ms": bound12[0], "bound_by": bound12[1],
         "library_ms": None, "library_note": lib_note, "call_ms": call_ms12,
+        "banded_ms": banded_ms12, "cases_equal": n12,
         "main_path_display_max_abs_err": disp_err13,
         "shape": "1024x1024 film, aces, flipped (max_abs_err in u8 steps; ms: device time, "
                  "CUDA events around calls queued behind a spin kernel; call_ms: CUDA "

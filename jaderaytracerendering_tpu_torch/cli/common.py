@@ -92,8 +92,9 @@ def config_from_args(args) -> RenderConfig:
     if args.config:
         with open(args.config) as f:
             cfg = RenderConfig.from_json(f.read())
-    kw = {k: getattr(args, k) for k in ("width", "height", "spp", "max_depth",
-                                         "seed", "tonemap", "engine")
+    kw = {k: getattr(args, k) for k in ("width", "height", "spp", "max_depth", "traversal",
+                                         "spp_batch", "rays_per_launch", "seed",
+                                         "tonemap", "engine")
           if getattr(args, k) is not None}
     return cfg.replace(**kw) if kw else cfg
 
@@ -111,7 +112,13 @@ def add_common_args(ap) -> None:
     ap.add_argument("--height", type=int)
     ap.add_argument("--spp", type=int)
     ap.add_argument("--max-depth", dest="max_depth", type=int)
+    ap.add_argument("--traversal", choices=["sweep", "clusters", "gemm", "bvh", "brute"],
+                    help="the JAX CLI's choices; every one walks the BVH here")
     ap.add_argument("--engine", choices=["mega", "scan", "pool"])
+    ap.add_argument("--spp-batch", dest="spp_batch", type=int,
+                    help="samples per scan-engine batch (and per preview frame with --spp)")
+    ap.add_argument("--rays-per-launch", dest="rays_per_launch", type=int,
+                    help="accepted for the JAX CLI's command lines; ignored")
     ap.add_argument("--seed", type=int)
     ap.add_argument("--tonemap", choices=["aces", "reinhard", "none"])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

@@ -104,7 +104,7 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
 
     import torch
 
-    from ..core import camera as camera_mod
+    from ..integrator import mega as mega_mod
     from ..ops import build, kernels
 
     eye, rot = mega_mod.host_camera(cam)

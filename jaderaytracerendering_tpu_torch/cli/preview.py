@@ -117,7 +117,8 @@ def main(argv=None):
     if bands > 1 and (cfg.width * cfg.height) % bands == 0:
         cfg = cfg.replace(preview_bands=bands)
     sd = assemble(objects, env, leaf_size=cfg.bvh_leaf_size, device=device)
-    common.stage(f"scene: {sd.n_triangles} tris, {sd.n_nodes} nodes, {sd.n_emit} lights, "
+    common.stage(f"scene: {sd.n_triangles} tris, {sd.n_nodes} nodes ({sd.bvh_builder} "
+                 f"builder), {sd.n_emit} lights, "
                  f"{cfg.width}x{cfg.height}, {cfg.preview_bands} bands, engine "
                  f"{cfg.engine}, device {device}")
 

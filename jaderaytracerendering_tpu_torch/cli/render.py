@@ -23,15 +23,20 @@ from . import common
 
 def main(argv=None):
     """Run the CLI; returns (film, stats) with stats = {'seconds',
-    'rays', 'device'} for callers that drive it in-process."""
+    'rays', 'device', 'bvh_builder', 'scene_build_s'} for callers that
+    drive it in-process."""
     ap = argparse.ArgumentParser(prog="jade-render-torch")
     common.add_common_args(ap)
     ap.add_argument("--out", default="RenderResultCuda.bmp")
+    ap.add_argument("--mesh", help="device mesh TILExSPP (multi-device: not ported yet)")
     ap.add_argument("--save-film", dest="save_film",
                     help="checkpoint the raw film (npz) for resume")
     ap.add_argument("--resume-film", dest="resume_film",
                     help="resume accumulation from a film checkpoint")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise SystemExit(f"--mesh {args.mesh}: multi-device rendering is not ported yet; "
+                         "render on one device without --mesh")
     device = common.select_device(args)
 
     import torch
@@ -43,13 +48,15 @@ def main(argv=None):
 
     objects, env, cam = common.load_scene(args)
     cfg = common.config_from_args(args)
+    t0 = time.perf_counter()
     sd = assemble(objects, env, leaf_size=cfg.bvh_leaf_size, device=device)
+    build_s = time.perf_counter() - t0
     common.stage(f"scene: {sd.n_triangles} triangles, {sd.n_nodes} BVH nodes, "
-                 f"{sd.n_emit} emissive, BVH depth {sd.bvh_depth}, "
-                 f"device {device}")
+                 f"{sd.n_emit} emissive, BVH depth {sd.bvh_depth}, {sd.bvh_builder} BVH "
+                 f"builder, built in {build_s:.3f}s, device {device}")
 
     film = Film.load(args.resume_film, device) if args.resume_film else None
-    stats = {"device": str(device)}
+    stats = {"device": str(device), "bvh_builder": sd.bvh_builder, "scene_build_s": build_s}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         stats["device"] = torch.cuda.get_device_name(device)

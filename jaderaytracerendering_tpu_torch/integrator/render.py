@@ -22,7 +22,7 @@ from ..core import camera as camera_mod
 from ..core.film import Film
 from ..ops import mega as megak
 from ..ops import postfx
-from ..utils.config import RenderConfig
+from ..utils.config import RenderConfig, check_traversal
 from . import wavefront
 
 # lanes (pixels x samples) per plain-integrator call; bounds the memory
@@ -71,6 +71,7 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     ``stats``, when given, receives ``rays``: the useful rays traced (and
     ``iterations`` from the pool engine); the preview integrator counts
     none."""
+    check_traversal(cfg.traversal)
     if cfg.integrator == "preview":
         film = render_film_preview(sd, cam, cfg, film)
         if progress:
@@ -131,17 +132,12 @@ def display_banded(accum: torch.Tensor, frame_idx: int, bands: int, spp: int,
     """The display of a banded film (``render_film_preview_banded``): each
     pixel divided by its own sample count, which the frame counter gives.
     The bands up to this frame's have had one more rotation than the
-    rest and form a prefix of the flat film, so the display is at most
-    two postfx calls, one count each."""
-    h, w, _ = accum.shape
-    npix = h * w
+    rest and form a prefix of the flat film, so the display is one postfx
+    call with two counts, split where that prefix ends."""
+    npix = accum.shape[0] * accum.shape[1]
     band, rot = frame_idx % bands, frame_idx // bands
-    split = (band + 1) * (npix // bands)
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=accum.device)  # both spans fill it
-    postfx.postfx(accum, (rot + 1) * spp, mode, flip=True, span=(0, split), out=out)
-    if split < npix:
-        postfx.postfx(accum, rot * spp, mode, flip=True, span=(split, npix), out=out)
-    return out
+    return postfx.postfx(accum, (rot + 1) * spp, mode, flip=True,
+                         split=(band + 1) * (npix // bands), count_hi=rot * spp)
 
 
 def render_window(sd, eye, rot, out: torch.Tensor, p0: int, sample_base: int,
@@ -185,6 +181,7 @@ def render_film_preview_banded(sd, cam, cfg: RenderConfig, film: Optional[Film],
     sums in place. ``film.count`` is the largest per-pixel count (bands
     not visited yet this rotation trail by ``cfg.spp``); a whole rotation
     gives every pixel the samples of one full frame."""
+    check_traversal(cfg.traversal)
     npix = cfg.width * cfg.height
     bands = cfg.preview_bands
     if npix % bands:
@@ -210,6 +207,7 @@ def render_film_preview(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     ``display_frame``. With ``cfg.preview_bands > 1``, a ``frame_idx``
     and ``display``, renders one banded frame
     (``render_film_preview_banded``)."""
+    check_traversal(cfg.traversal)
     if cfg.preview_bands > 1 and frame_idx is not None and display:
         return render_film_preview_banded(sd, cam, cfg, film, frame_idx)
     if film is None:

@@ -66,7 +66,7 @@ def library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, args in (("mega_render", [vp, vp, vp, vp, vp]),
                        ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
-                       ("postfx", [vp, vp, ci, ci, ci, ci, cf, ci, cf, cf, ci, vp]),
+                       ("postfx", [vp, vp, ci, ci, ci, ci, ci, cf, cf, ci, cf, cf, ci, vp]),
                        ("spawn_scratch_words", [ci]),
                        ("spawn_primary", [vp, vp, vp, vp, vp, vp]),
                        ("front_bounce", [vp, vp, vp, vp, vp, vp, vp]),

@@ -1,6 +1,7 @@
 """Wavefront OBJ loader (host NumPy) with reference-compatible semantics.
 
-The JAX package's scene/objloader.py with its Python parser: ``v`` and
+The JAX package's scene/objloader.py, with its Python parser and, by
+default, the native one (accel/native.py): ``v`` and
 ``f`` records, fan-triangulated faces, optional unit-cube normalization
 (with the reference's cross-axis AABB typo behind ``compat_aabb_bug``), a
 4x4 model transform in GLM ``m[col, row]`` layout, and flat face normals
@@ -120,8 +121,23 @@ def mesh_from_arrays(
 
 def read_obj(filepath: str, transform: np.ndarray | None = None,
              normalize: bool = False, compat_aabb_bug: bool = False,
-             compat_slash_faces: bool = False) -> MeshData:
-    """readObj equivalent: file -> transformed flat-shaded triangle soup."""
-    with open(filepath, "r") as fh:
-        v, f = parse_obj_text(fh.read(), compat_slash_faces)
-    return mesh_from_arrays(v, f, transform, normalize, compat_aabb_bug)
+             compat_slash_faces: bool = False, backend: str = "auto") -> MeshData:
+    """readObj equivalent: file -> transformed flat-shaded triangle soup.
+
+    ``backend='auto'`` takes the native C++ parser (accel/native.py) when
+    its library builds and the Python parser otherwise; 'native' and
+    'python' force one."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown OBJ parser backend {backend!r}")
+    parsed = None
+    if backend != "python":
+        from ..accel import native
+
+        parsed = native.parse_obj(filepath, compat_slash_faces)
+        if parsed is None and backend == "native":
+            raise RuntimeError("native OBJ parser requested but no C++ compiler (g++) "
+                               "is available to build runtime/jade_native.cpp")
+    if parsed is None:
+        with open(filepath, "r") as fh:
+            parsed = parse_obj_text(fh.read(), compat_slash_faces)
+    return mesh_from_arrays(*parsed, transform, normalize, compat_aabb_bug)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..accel import bvh as bvh_mod
+from ..accel import native
 from . import material as material_mod
 from .objloader import MeshData
 
@@ -168,6 +169,7 @@ class SceneData:
     has_refract: bool
     has_mirror: bool
     bvh_depth: int
+    bvh_builder: str = ""  # 'native' | 'numpy' (assemble); '' for other fields
 
     @property
     def device(self) -> torch.device:
@@ -192,7 +194,8 @@ def _check_device(device) -> torch.device:
 
 def scene_from_numpy(fields: dict, device="cuda") -> SceneData:
     """SceneData from a dict of NumPy arrays named as ``TABLES`` plus
-    ``leaf_size`` (extra keys ignored) — e.g. the fields of the JAX
+    ``leaf_size`` and, optionally, ``bvh_builder`` (extra keys ignored) —
+    e.g. ``assemble_numpy``'s, or the fields of the JAX
     package's ``assemble(..., xp=np)``. The kernels' packed walk tables
     (``PACKED``) and the other static facts are computed from the tables.
     The tables go to the card unless the caller asks for another device."""
@@ -221,6 +224,7 @@ def scene_from_numpy(fields: dict, device="cuda") -> SceneData:
         has_refract=bool((refract == material_mod.DIR_REFRACT).any()),
         has_mirror=bool((reflex == material_mod.MIRROR).any()),
         bvh_depth=bvh_mod.tree_depth(nodes),
+        bvh_builder=str(fields.get("bvh_builder", "")),
     )
 
 
@@ -235,8 +239,15 @@ def _triangle_area(p1, p2, p3) -> np.ndarray:
 
 
 def assemble_numpy(objects: List[SceneObject], env_map: np.ndarray,
-                   leaf_size: int = 8, bvh_method: str = "sah") -> dict:
-    """Build the ``TABLES`` arrays on the host (NumPy)."""
+                   leaf_size: int = 8, bvh_method: str = "sah",
+                   bvh_backend: str = "auto") -> dict:
+    """Build the ``TABLES`` arrays on the host (NumPy), plus ``leaf_size``
+    and ``bvh_builder``, the builder that ran. ``bvh_backend`` as the JAX
+    package's ``assemble``: 'auto' takes the native SAH builder
+    (accel/native.py) when its library builds and the NumPy one otherwise;
+    'native' and 'numpy' force one."""
+    if bvh_backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown BVH backend {bvh_backend!r}")
     if not objects:
         raise ValueError("scene needs at least one object")
     p1 = np.concatenate([o.mesh.p1 for o in objects])
@@ -262,7 +273,13 @@ def assemble_numpy(objects: List[SceneObject], env_map: np.ndarray,
     obj_total_area = prefix_area[seg_end].astype(np.float32)
 
     # BVH build reorders triangles (PathTrace.cu:1565)
-    nodes, perm = bvh_mod.build(p1, p2, p3, leaf_size=leaf_size, method=bvh_method)
+    if bvh_backend == "native" or (bvh_backend == "auto" and native.available()):
+        builder = "native"
+        nodes, perm = native.build(p1, p2, p3, leaf_size=leaf_size, method=bvh_method,
+                                   required=True)
+    else:
+        builder = "numpy"
+        nodes, perm = bvh_mod.build(p1, p2, p3, leaf_size=leaf_size, method=bvh_method)
     p1, p2, p3, norm, obj_idx = (a[perm] for a in (p1, p2, p3, norm, obj_idx))
     mapping = np.empty(t, np.int32)
     mapping[perm] = np.arange(t, dtype=np.int32)
@@ -294,15 +311,16 @@ def assemble_numpy(objects: List[SceneObject], env_map: np.ndarray,
         bvh_left=nodes.left, bvh_right=nodes.right, bvh_n=nodes.n,
         bvh_index=nodes.index, bvh_aa=nodes.aa, bvh_bb=nodes.bb,
         env_map=np.asarray(env_map, np.float32),
-        leaf_size=leaf_size,
+        leaf_size=leaf_size, bvh_builder=builder,
     )
 
 
 def assemble(objects: List[SceneObject], env_map: np.ndarray,
-             leaf_size: int = 8, bvh_method: str = "sah",
+             leaf_size: int = 8, bvh_method: str = "sah", bvh_backend: str = "auto",
              device="cuda") -> SceneData:
-    """Build the scene on the host and place its tables on ``device`` (the
-    card unless the caller asks for the CPU; no CUDA device is an error)."""
+    """Build the scene on the host (``assemble_numpy``) and place its
+    tables on ``device`` (the card unless the caller asks for the CPU; no
+    CUDA device is an error)."""
     _check_device(device)
-    return scene_from_numpy(assemble_numpy(objects, env_map, leaf_size,
-                                           bvh_method), device)
+    return scene_from_numpy(assemble_numpy(objects, env_map, leaf_size, bvh_method,
+                                           bvh_backend), device)

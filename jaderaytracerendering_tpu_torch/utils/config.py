@@ -7,8 +7,9 @@ load in both packages. The knobs that tuned the TPU kernels
 ``mega_force_stream``, ``mega_stack_segments``, ``mega_redistribute``,
 ``mega_prologue``, ``spawn_kernel``, ``fused_tail``, ``front_kernel``,
 ``rays_per_launch``) are accepted and ignored. Every ``traversal`` name
-computes the same nearest hit, so the port walks the BVH for all of
-them: with the trace kernel on the card, in plain torch on the CPU.
+of the JAX package (``TRAVERSALS``) computes the same nearest hit, so the
+port walks the BVH for all of them: with the trace kernel on the card, in
+plain torch on the CPU. Any other name raises (``check_traversal``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,15 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Optional, Tuple
+
+# the names the JAX package's integrator/render.py::make_nearest accepts
+TRAVERSALS = ("sweep", "sweep_vpu", "sweep_mxu", "sweep_fused", "sweep_stream",
+              "clusters", "gemm", "bvh", "brute")
+
+
+def check_traversal(name: str) -> None:
+    if name not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +46,8 @@ class RenderConfig:
     tonemap: str = "aces"             # 'aces' | 'reinhard' | 'none'
     spp_batch: int = 4                # samples per scan-engine launch
     rays_per_launch: int = 1 << 14    # ignored
-    traversal: str = "sweep"          # any name: the BVH walk (trace kernel on CUDA)
-    integrator: str = "full"          # 'full' (NEE) | 'preview' (not ported)
+    traversal: str = "sweep"          # a name of TRAVERSALS: the BVH walk (trace kernel on CUDA)
+    integrator: str = "full"          # 'full' (NEE) | 'preview' (2 bounces, no NEE)
     preview_bounces: int = 2
     preview_bands: int = 1
     engine: str = "mega"              # 'mega' (CUDA megakernel) | 'pool'

@@ -1,5 +1,6 @@
 """Port parity: RenderConfig has the JAX package's fields and defaults,
-and every shipped config loads to equal configs in both packages.
+and every shipped config loads to equal configs in both packages; one
+command line gives equal configs through both CLIs' parsers.
 
 Tolerance: none — exact equality of every field."""
 
@@ -38,3 +39,36 @@ def test_from_json_tolerates_unknown_fields():
     text = cfg.to_json().replace('"width": 33', '"width": 33, "pallas_shading": true')
     back = tcfg.RenderConfig.from_json(text)
     assert back == cfg and back.mesh_shape == (2, 2)
+
+
+def test_cli_flags_give_equal_configs():
+    """One JAX command line through both packages' CLI parsers and
+    ``config_from_args``: equal configs, ``--rays-per-launch`` carried (and
+    ignored by the port)."""
+    import argparse
+
+    from jaderaytracerendering_tpu.cli import common as jcommon
+    from jaderaytracerendering_tpu_torch.cli import common as tcommon
+
+    argv = ["--traversal", "clusters", "--spp-batch", "3", "--rays-per-launch", "4096",
+            "--width", "24", "--height", "16", "--spp", "5", "--max-depth", "7",
+            "--seed", "9", "--tonemap", "reinhard", "--engine", "scan"]
+    cfgs = []
+    for common in (jcommon, tcommon):
+        ap = argparse.ArgumentParser()
+        common.add_common_args(ap)
+        cfgs.append(dataclasses.asdict(common.config_from_args(ap.parse_args(argv))))
+        with pytest.raises(SystemExit):  # argparse refuses a name outside the choices
+            ap.parse_args(["--traversal", "octree"])
+    assert cfgs[0] == cfgs[1]
+    assert (cfgs[1]["traversal"], cfgs[1]["spp_batch"], cfgs[1]["rays_per_launch"]) == \
+        ("clusters", 3, 4096)
+
+
+def test_render_cli_refuses_mesh(tmp_path):
+    from jaderaytracerendering_tpu_torch.cli import render
+
+    out = tmp_path / "out.bmp"
+    with pytest.raises(SystemExit, match="--mesh 2x1: multi-device rendering is not ported"):
+        render.main(["--mesh", "2x1", "--device", "cpu", "--scene", "tiny", "--out", str(out)])
+    assert not out.exists()

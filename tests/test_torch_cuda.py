@@ -14,7 +14,8 @@ on paths of three or more terms); radiance sums of the other kernels per
 pixel atol = 1e-4 * max, rtol = 1e-3 (they match the plain versions to a
 few ulps; the pool's film adds are float atomics, so its sums within a
 pixel change order); lane integers and counters of one pool step exact,
-its floats within 1e-5 of their max; display u8 within 1."""
+its floats within 1e-5 of their max; display u8 exact (postfx built with
+--fmad=false, powf as the plain version's)."""
 
 import dataclasses
 
@@ -384,7 +385,7 @@ def test_preview_kernel_matches_plain_bit_for_bit(jade_cuda, width, height, spp,
 
 def test_preview_banded_rotation_on_cuda(jade_cuda):
     """Four banded frames through the preview kernel equal one full frame
-    through it, bit for bit; each frame's display is postfx launches."""
+    through it, bit for bit; each frame's display is one postfx launch."""
     ds, sd = jade_cuda
     cfg = RenderConfig(width=32, height=32, spp=1, integrator="preview", preview_bands=4)
     full = trender.render_film_preview(sd, ds.camera, cfg.replace(preview_bands=1))
@@ -394,35 +395,71 @@ def test_preview_banded_rotation_on_cuda(jade_cuda):
         film, disp = trender.render_film_preview(sd, ds.camera, cfg, film=film, display=True,
                                                  frame_idx=f)
     assert kernels.LAUNCHES["render_preview_mega"] == 4
-    assert kernels.LAUNCHES["postfx"] == 2 + 2 + 2 + 1  # the last frame has one count
+    assert kernels.LAUNCHES["postfx"] == 4  # one a frame, two counts or one
     assert torch.equal(film.accum, full.accum) and disp.dtype == torch.uint8
+
+
+def _film_view(g, h, w, offset):
+    """A contiguous [h, w, 3] float32 view ``offset`` floats into a larger
+    buffer: its data pointer is 16-byte aligned only at offset 0."""
+    buf = torch.tensor(g.uniform(-1, 60, 3 * h * w + 4).astype(np.float32), device="cuda")
+    return buf[offset:offset + 3 * h * w].view(h, w, 3)
 
 
 @pytest.mark.parametrize("mode", ["aces", "reinhard", "none"])
 def test_postfx_kernel_matches_plain(jade_cuda, mode):
+    """The postfx kernel equals its plain version byte for byte over both
+    flips, ragged widths, odd spans, one and two counts, and films and
+    displays whose data pointers are not aligned."""
     g = np.random.default_rng(3)
-    accum = torch.tensor(g.uniform(-1, 60, (96, 80, 3)).astype(np.float32), device="cuda")
-    for flip, span in ((False, None), (True, None), (True, (100, 5000))):
-        before = kernels.LAUNCHES["postfx"]
-        k = postfx.postfx(accum, 7, mode, flip=flip, span=span)
-        assert kernels.LAUNCHES["postfx"] == before + 1
-        p = postfx.postfx_plain(accum, 7, mode, flip=flip, span=span)
-        assert int((k.int() - p.int()).abs().max()) <= 1
+    for h, w in ((96, 80), (7, 1021), (5, 13)):
+        n = h * w
+        for offset in (0, 1, 2, 3):
+            accum = _film_view(g, h, w, offset)
+            assert (accum.data_ptr() % 16 == 0) == (offset == 0)
+            for flip, span, split in ((False, None, None), (True, None, None),
+                                      (True, (3, n - 5), None), (True, None, w + 3),
+                                      (False, (w - 1, n - 2), 2 * w + 1), (True, (5, 9), 5)):
+                out_k = torch.full((3 * n + 1,), 7, dtype=torch.uint8, device="cuda")
+                out_p = out_k.clone()
+                kw = dict(flip=flip, span=span, split=split, count_hi=None if split is None else 4)
+                before = kernels.LAUNCHES["postfx"]
+                postfx.postfx(accum, 7, mode, out=out_k[offset % 2:][:3 * n].view(h, w, 3), **kw)
+                assert kernels.LAUNCHES["postfx"] == before + 1
+                postfx.postfx_plain(accum, 7, mode, out=out_p[offset % 2:][:3 * n].view(h, w, 3),
+                                    **kw)
+                assert torch.equal(out_k, out_p), (h, w, offset, flip, span, split)
 
 
 def test_banded_display_kernel_matches_plain(jade_cuda):
-    """The banded display (two postfx launches over two spans, two counts)
-    of each frame of a rotation against the plain postfx band by band."""
+    """The banded display (one postfx launch: two spans, two counts) of
+    each frame of a rotation against the plain postfx band by band."""
     g = np.random.default_rng(4)
     accum = torch.tensor(g.uniform(0, 9, (64, 48, 3)).astype(np.float32), device="cuda")
     band_px = 64 * 48 // 4
     for f in range(8):
         kernels.reset_launches()
         k = trender.display_banded(accum, f, 4, 2, "aces")
-        assert kernels.LAUNCHES["postfx"] == (1 if f % 4 == 3 else 2)
+        assert kernels.LAUNCHES["postfx"] == 1
         p = torch.empty_like(k)
         for b in range(4):
             n = (f // 4 + int(b <= f % 4)) * 2
             postfx.postfx_plain(accum, n, "aces", flip=True,
                                 span=(b * band_px, (b + 1) * band_px), out=p)
-        assert int((k.int() - p.int()).abs().max()) <= 1
+        assert torch.equal(k, p)
+
+
+def test_native_jade_scene_renders_through_the_megakernel(jade_cuda):
+    """The render CLI's default scene build (the native SAH builder) on the
+    jade 20k scene, rendered by the megakernel against its plain version."""
+    ds = demo.jade_scene(n_buddha_tris=20_000, env_shape=(32, 64))
+    sd = assemble(ds.objects, ds.env_map, bvh_backend="native", device="cuda")
+    assert sd.bvh_builder == "native"
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cuda")
+    before = kernels.LAUNCHES["mega_render"]
+    k = megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp)
+    assert kernels.LAUNCHES["mega_render"] == before + 1
+    p = megak.mega_render_plain(sd, eye, rot, cfg, 0, cfg.spp)
+    torch.cuda.synchronize()
+    _mega_close(k, p)

@@ -1,7 +1,7 @@
 """Port parity: the plain torch integrator (``render_film`` engine
 'scan') against the JAX package's ``render_film(engine='scan',
-traversal='bvh')`` — same scenes, same counter-RNG streams, pixel for
-pixel.
+traversal='bvh')`` (and its 'clusters' and 'gemm' routes) — same scenes,
+same counter-RNG streams, pixel for pixel.
 
 Tolerance: atol = 1e-4 * max|film|, rtol = 1e-3 — the precedent of
 tests/test_integrator.py:56-65 (NumPy vs XLA): libm ulps (exp, cos, sin,
@@ -22,6 +22,7 @@ from jaderaytracerendering_tpu_torch.core.film import Film
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo as tdemo
 from jaderaytracerendering_tpu_torch.scene import scene as tscene
+from jaderaytracerendering_tpu_torch.utils.config import TRAVERSALS
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig as TConfig
 
 torch.set_num_threads(1)
@@ -34,7 +35,7 @@ SCENES = {
 }
 
 
-def _films(name, **cfg_kw):
+def _films(name, traversal="bvh", **cfg_kw):
     kw, r = SCENES[name]
     j = getattr(jdemo, f"{name}_scene")(**kw)
     t = getattr(tdemo, f"{name}_scene")(**kw)
@@ -42,12 +43,12 @@ def _films(name, **cfg_kw):
         j.camera.r = t.camera.r = r
     sdj = jax.tree.map(jnp.asarray,
                        jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"))
-    jcfg = JConfig(**SIZE, **cfg_kw, engine="scan", traversal="bvh")
+    jcfg = JConfig(**SIZE, **cfg_kw, engine="scan", traversal=traversal)
     a = np.asarray(jrender.render_film(sdj, j.camera, jcfg).mean())
-    st = tscene.assemble(t.objects, t.env_map, device="cpu")
+    st = tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu")
     stats = {}
-    film = trender.render_film(st, t.camera, TConfig(**SIZE, **cfg_kw, engine="scan"),
-                               stats=stats)
+    film = trender.render_film(st, t.camera, TConfig(**SIZE, **cfg_kw, engine="scan",
+                                                      traversal=traversal), stats=stats)
     return a, film, stats
 
 
@@ -62,6 +63,31 @@ def test_scan_matches_jax_scan(name):
     assert film.count == 2 and film.accum.dtype == torch.float32
     assert stats["rays"] >= 8 * 8 * 2  # at least the primaries
     _close(a, film.mean().numpy())
+
+
+@pytest.mark.parametrize("traversal", ["clusters", "gemm"])
+def test_scan_matches_jax_traversal_routes(traversal):
+    """The JAX package's cluster and tri_gemm routes (their NumPy/XLA
+    versions) compute the nearest hit the port's BVH walk computes."""
+    a, film, _ = _films("tiny", traversal=traversal)
+    _close(a, film.mean().numpy())
+
+
+def test_unknown_traversal_raises():
+    """A name outside the JAX make_nearest's nine raises ValueError where
+    the film and the preview routes start; the nine are the port's."""
+    assert TRAVERSALS == ("sweep", "sweep_vpu", "sweep_mxu", "sweep_fused", "sweep_stream",
+                          "clusters", "gemm", "bvh", "brute")
+    ds = tdemo.tiny_scene()
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
+    cfg = TConfig(**SIZE, traversal="octree")
+    for call in (lambda: trender.render_film(st, ds.camera, cfg),
+                 lambda: trender.render_film(st, ds.camera, cfg.replace(integrator="preview")),
+                 lambda: trender.render_film_preview(st, ds.camera, cfg),
+                 lambda: trender.render_film_preview_banded(
+                     st, ds.camera, cfg.replace(preview_bands=4), None, 0)):
+        with pytest.raises(ValueError, match="unknown traversal 'octree'"):
+            call()
 
 
 def test_gl_jitter_and_seed_match_jax():

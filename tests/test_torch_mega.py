@@ -37,7 +37,7 @@ def test_mega_cornell_matches_jax_mega():
     a = np.asarray(jmega.render_film_mega(
         sdj, ds.camera, JConfig(**SIZE, traversal="sweep")).mean())
     t = tdemo.cornell_scene()
-    st = tscene.assemble(t.objects, t.env_map, device="cpu")
+    st = tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu")
     kernels.reset_launches()
     film = trender.render_film(st, t.camera, TConfig(**SIZE, engine="mega"))
     assert set(kernels.LAUNCHES.values()) == {0}

@@ -56,7 +56,7 @@ def jade():
     t = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     j.camera.r = t.camera.r = 2.0
     return (j, jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            t, tscene.assemble(t.objects, t.env_map, device="cpu"))
+            t, tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu"))
 
 
 def _state(st_scene, cam, total, m=M):

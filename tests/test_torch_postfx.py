@@ -3,7 +3,8 @@
 - ``ops/postfx.postfx`` (on CPU tensors its plain version) against the JAX
   package's Pallas ``postfx(interpret=True)`` in the three modes, and the
   zero-count guard (mirrors tests/test_postfx.py); its ``flip`` and
-  ``span`` options against the plain flip of one call;
+  ``span`` options against the plain flip of one call; a ``split`` with
+  two counts against two JAX calls, one per count;
 - ``render_args.txt`` and the JSON spec written by each package and read
   by the other, byte for byte;
 - ``cli.preview --device cpu`` headless and through its f command, and
@@ -49,6 +50,32 @@ def test_postfx_matches_jax_kernel(mode):
     assert got.dtype == torch.uint8 and got.shape == (16, 128, 3)
     assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
     assert got.numpy().min() == 0 and got.numpy().max() > 200
+
+
+@pytest.mark.parametrize("h,w,span,split", [
+    (7, 1021, None, 2 * 1021 + 517),       # a ragged width, the split inside a row
+    (7, 1021, (3, 5 * 1021 - 1), 1021),    # odd span bounds, the split on a row edge
+    (5, 12, (13, 59), 13),                 # no pixel below the split
+    (5, 12, (1, 47), 47),                  # none from it on
+])
+def test_postfx_split_matches_two_jax_calls(h, w, span, split):
+    """One call with a split and two counts (a banded frame's display)
+    equals the JAX kernel run once per count, each on its own span."""
+    g = np.random.default_rng(5)
+    accum = g.uniform(-1, 30, (h, w, 3)).astype(np.float32)
+    p0, p1 = span or (0, h * w)
+    full = [np.asarray(jpostfx.postfx(jnp.asarray(accum), n, "aces", interpret=True))
+            .reshape(-1, 3) for n in (3, 2)]
+    want = np.full((h * w, 3), 7, np.uint8)
+    want[p0:split], want[split:p1] = full[0][p0:split], full[1][split:p1]
+    out = torch.full((h, w, 3), 7, dtype=torch.uint8)
+    got = postfx.postfx_plain(torch.from_numpy(accum), 3, "aces", flip=True, span=span,
+                              out=out, split=split, count_hi=2).numpy()
+    assert np.abs(got.astype(int) - want.reshape(h, w, 3)[::-1].astype(int)).max() <= 1
+    with pytest.raises(ValueError):
+        postfx.postfx_plain(torch.from_numpy(accum), 3, split=split)  # no count_hi
+    with pytest.raises(ValueError):
+        postfx.postfx_plain(torch.from_numpy(accum), 3, span=span, split=p0 - 1, count_hi=2)
 
 
 def test_postfx_zero_count_guard():

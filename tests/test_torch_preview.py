@@ -49,7 +49,7 @@ def scenes():
     t = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     j.camera.r = t.camera.r = 2.0
     sdj = jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy")
-    return j, sdj, t, tscene.assemble(t.objects, t.env_map, device="cpu")
+    return j, sdj, t, tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -64,7 +64,7 @@ def scenes():
     j = _glass(jdemo.jade_scene(n_buddha_tris=200, env_shape=(16, 32)), jmaterial)
     t = _glass(tdemo.jade_scene(n_buddha_tris=200, env_shape=(16, 32)), tmaterial)
     sdj = jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy")
-    st = tscene.assemble(t.objects, t.env_map, device="cpu")
+    st = tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu")
     assert st.has_refract and sdj.has_refract
     return j, sdj, t, st
 
@@ -178,7 +178,7 @@ def test_escaped_march_kills_the_path():
                                 jmaterial.Material(**kw))]
     cam = tdemo.OrbitCamera()
     cfg = dict(width=8, height=8, spp=1, max_depth=2, max_refract_bounces=4)
-    st = tscene.assemble(t_obj, env, device="cpu")
+    st = tscene.assemble(t_obj, env, bvh_backend="numpy", device="cpu")
     sdj = jassemble(j_obj, env, xp=np, bvh_backend="numpy")
     want = np.asarray(jrender.render_film(jax.tree.map(jnp.asarray, sdj), cam, JConfig(
         **cfg, engine="scan", traversal="bvh")).accum).reshape(-1, 3)

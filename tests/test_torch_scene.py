@@ -31,7 +31,7 @@ def _pair(name):
     j = getattr(jdemo, f"{name}_scene")(**kw)
     t = getattr(tdemo, f"{name}_scene")(**kw)
     return (jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            tscene.assemble(t.objects, t.env_map, device="cpu"))
+            tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

@@ -49,7 +49,7 @@ def jade():
     j = jdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     t = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     return (jassemble(j.objects, j.env_map, xp=np, bvh_backend="numpy"),
-            tscene.assemble(t.objects, t.env_map, device="cpu"))
+            tscene.assemble(t.objects, t.env_map, bvh_backend="numpy", device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -27,7 +27,7 @@ SCENES = {"jade": dict(n_buddha_tris=300, env_shape=(16, 32)), "cornell": {}}
 
 def _scene(name):
     ds = getattr(tdemo, f"{name}_scene")(**SCENES[name])
-    return tscene.assemble(ds.objects, ds.env_map, device="cpu")
+    return tscene.assemble(ds.objects, ds.env_map, bvh_backend="numpy", device="cpu")
 
 
 def _bits(t):
