@@ -71,7 +71,19 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      frames for the steady frames per second, and 64 more under
      torch.profiler for the device's idle share in the steady frames and
      the kernels they ran (one preview and one postfx launch a frame,
-     nothing else).
+     nothing else);
+ 14. multi-device: (a) the three tile windows of a 3x1 mesh at the main
+     path (the middle one starts off a block edge, the last is shorter)
+     through the megakernel, each equal bit for bit to its columns of
+     phase 4's film, and through the pool, within ``compare_images`` of
+     them with equal useful rays; (b) the render CLI at its defaults in
+     fresh processes: on one device (the yardstick), then with ``--mesh
+     2x1`` (film bit for bit phase 4's) and ``--mesh 1x2 --engine pool``
+     (within MESH_RTOL / MESH_ATOL_FRAC of it, equal useful rays), the
+     CLI spawning 2 ranks that share card 0 over gloo (and, with two
+     cards or more, ``--mesh 2x1`` over NCCL): every rank's film equal,
+     each rank's launches, render seconds and time in ``all_reduce``
+     (CUDA events); a ``multi_device`` JSON line.
 
 A kernel's device time comes from CUDA events around calls queued behind
 a spin kernel (``device_ms_each``), not from torch.profiler: on the
@@ -81,8 +93,9 @@ understates. The profiler traces whole runs (phase 8's pool render,
 phase 13's steady frames), traced again until the trace holds what it
 is read for.
 
-Every phase prints one line; any failure raises (exit code != 0). The
-line before the last is the kernels' JSON record, the last line is
+Every phase prints one line; any failure raises (exit code != 0), a
+failed or hung rank too (each CLI run of phase 14 is a subprocess with a
+timeout). The line before the last is the kernels' JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -535,6 +548,47 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
                                 bound_ms=b[0], bound_by=b[1], got=n_got)
     out["_state"] = dict(lanes=m, active=n_active, iterations=iters)
     return out
+
+
+MESH_TIMEOUT_S = 300             # phase 14: a CLI run over a mesh (rendezvous, scene, render)
+MESH_RTOL, MESH_ATOL_FRAC = 1e-4, 1e-5  # phase 14: an spp split against one device (the
+                                 # JAX package's tests/test_parallel.py tolerance)
+_MESH_CLI = (
+    "import json, sys\n"
+    "from jaderaytracerendering_tpu_torch.cli import render\n"
+    "film, stats = render.main(sys.argv[1:])\n"
+    "print('MESH_STATS ' + json.dumps(stats))\n")
+
+
+def mesh_cli(args: list, tmp: str, name: str, visible: str | None) -> dict:
+    """The render CLI at its defaults plus ``args`` (a ``--mesh``), started
+    plainly in a subprocess with a timeout, so that it spawns its ranks
+    itself; ``visible``: CUDA_VISIBLE_DEVICES for it (None: every card)
+    -> rank 0's stats with every rank's under ``ranks``, the saved film
+    and the wall time of the whole command."""
+    film_path = os.path.join(tmp, f"{name}.npz")
+    env = dict(os.environ)
+    env.pop("LOCAL_RANK", None)
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    cmd = [sys.executable, "-c", _MESH_CLI, *args, "--out", os.path.join(tmp, f"{name}.bmp"),
+           "--save-film", film_path]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"phase 14 {name}: no result in {MESH_TIMEOUT_S} s "
+                             f"(stderr: {(e.stderr or b'')[-2000:]!r})") from None
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 14 {name}: exit code {res.returncode}\n{res.stderr[-4000:]}")
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("MESH_STATS ")]
+    stats = json.loads(line[-1][len("MESH_STATS "):])
+    data = np.load(film_path)
+    stats.update(film=torch.from_numpy(data["accum"]), count=int(data["count"]),
+                 command_s=wall, log=res.stderr)
+    return stats
 
 
 def main() -> None:
@@ -1083,6 +1137,125 @@ def main() -> None:
         f"the {window13:.2f} ms from its frame {warm + 1}'s preview launch to its last, in which "
         f"the device ran {n_prev13} preview and {n_post13} postfx launches and no other "
         f"kernel [{gpu}]")
+
+    # ---- phase 14: multi-device ------------------------------------------
+    # (a) windows in-process: the three tile windows of a 3x1 mesh (the
+    # middle one starts off a block edge, the last is shorter) through the
+    # megakernel, each equal to its columns of phase 4's film bit for bit;
+    # the pool over the same windows within compare_images of them, with
+    # equal useful rays
+    shard14 = -(-npix // 3)
+    windows14 = [(t * shard14, min(shard14, npix - t * shard14)) for t in range(3)]
+    flat4 = mega_film.reshape(-1, 3)
+    win14 = []
+    rays14 = 0.0
+    for p0, n_px in windows14:
+        kernels.reset_launches()
+        t_w = time.perf_counter()
+        out_w = megak.mega_render(sd, eye_h, rot_h, cfg4, 0, cfg4.spp, p0, n_px)
+        torch.cuda.synchronize()
+        mega_w_ms = (time.perf_counter() - t_w) * 1e3
+        if not torch.equal(out_w[0:3].T, flat4[p0:p0 + n_px]):
+            n_bad = int((out_w[0:3].T != flat4[p0:p0 + n_px]).any(dim=1).sum())
+            raise AssertionError(f"phase 14 window [{p0}, {p0 + n_px}): {n_bad} pixels differ "
+                                 f"from phase 4's film")
+        acc_w = torch.zeros((n_px, 3), device=dev)
+        t_w = time.perf_counter()
+        pool_rays_w, _ = pool.render_window_pool(sd, ds.camera, cfg4, acc_w, p0, 0, cfg4.spp)
+        torch.cuda.synchronize()
+        pool_w_ms = (time.perf_counter() - t_w) * 1e3
+        mega_rays_w = float(out_w[3].sum(dtype=torch.float64))
+        err_w, outside_w, _ = compare_images(acc_w.T, out_w[0:3], f"phase 14 pool window {p0}")
+        if pool_rays_w != mega_rays_w:
+            raise AssertionError(f"phase 14 window {p0}: pool rays {pool_rays_w} vs mega "
+                                 f"{mega_rays_w}")
+        launches_w = dict(kernels.LAUNCHES)
+        if launches_w["mega_render"] != 1 or min(
+                launches_w[k] for k in ("spawn_primary", "trace_segments", "front_bounce",
+                                        "resolve_bounce")) < 1:
+            raise AssertionError(f"phase 14 window {p0}: launches {launches_w}")
+        rays14 += mega_rays_w
+        win14.append({"pix0": p0, "n_px": n_px, "mega_ms": mega_w_ms, "pool_ms": pool_w_ms,
+                      "pool_max_abs_err": err_w, "pool_outside": outside_w,
+                      "useful_rays": mega_rays_w})
+    if rays14 != mega_rays:
+        raise AssertionError(f"phase 14: the windows' useful rays {rays14} vs the film's "
+                             f"{mega_rays}")
+    log("phase 14 windows: " + "; ".join(
+        f"[{w['pix0']}, {w['pix0'] + w['n_px']}) mega {w['mega_ms']:.2f} ms bit-equal to phase "
+        f"4's columns, pool {w['pool_ms']:.2f} ms max abs err {w['pool_max_abs_err']:.3e} "
+        f"({w['pool_outside']} outside), rays equal" for w in win14) + f" [{gpu}]")
+
+    # (b) the render CLI over a mesh, its ranks spawned by the CLI: 2x1
+    # (mega) bit for bit against phase 4's film, 1x2 --engine pool within
+    # MESH_RTOL / MESH_ATOL_FRAC of it; both ranks on one card over gloo
+    # (CUDA_VISIBLE_DEVICES=0), and, with two cards or more, 2x1 over NCCL
+    runs14 = [("2x1-gloo", ["--mesh", "2x1"], "0", "gloo"),
+              ("1x2-pool-gloo", ["--mesh", "1x2", "--engine", "pool"], "0", "gloo")]
+    if torch.cuda.device_count() >= 2:
+        runs14.append(("2x1-nccl", ["--mesh", "2x1"], None, "nccl"))
+    mesh14 = []
+    film4_cpu = mega_film.cpu()
+    scale14 = float(film4_cpu.abs().max())
+    with tempfile.TemporaryDirectory() as tmp:
+        # the yardstick: the CLI on one device in a fresh process, as each
+        # rank is one (its first launches load the kernel library)
+        one14 = mesh_cli([], tmp, "one-device", "0")
+        if not torch.equal(one14["film"], film4_cpu):
+            raise AssertionError("phase 14: the one-device CLI's film differs from phase 4's")
+        log(f"phase 14 CLI one device, a fresh process: render {one14['seconds']:.3f} s, "
+            f"command {one14['command_s']:.1f} s [{gpu}]")
+        for name, args, visible, backend in runs14:
+            st = mesh_cli(args, tmp, name, visible)
+            ranks = st["ranks"]
+            if st["count"] != cfg4.spp or len(ranks) != 2:
+                raise AssertionError(f"phase 14 {name}: count {st['count']}, {len(ranks)} ranks")
+            if {r["backend"] for r in ranks} != {backend}:
+                raise AssertionError(f"phase 14 {name}: backends {[r['backend'] for r in ranks]}")
+            if len({r["film_sha256"] for r in ranks}) != 1:
+                raise AssertionError(f"phase 14 {name}: the ranks' films differ")
+            names = (("spawn_primary", "trace_segments", "front_bounce", "resolve_bounce")
+                     if "pool" in name else ("mega_render",))
+            for r in ranks:
+                if min(r["launches"][k] for k in names) < 1:
+                    raise AssertionError(f"phase 14 {name}: rank {r['rank']} launches "
+                                         f"{r['launches']}")
+            if st["rays"] != mega_rays:
+                raise AssertionError(f"phase 14 {name}: useful rays {st['rays']} vs phase 4's "
+                                     f"{mega_rays}")
+            if "pool" in name:
+                err = (st["film"].double() - film4_cpu.double()).abs()
+                over = err > MESH_RTOL * film4_cpu.double().abs() + MESH_ATOL_FRAC * scale14
+                if bool(over.any()):
+                    raise AssertionError(f"phase 14 {name}: {int(over.sum())} values outside "
+                                         f"rtol {MESH_RTOL} + atol {MESH_ATOL_FRAC} x max")
+                max_err = float(err.max())
+            else:
+                if not torch.equal(st["film"], film4_cpu):
+                    raise AssertionError(f"phase 14 {name}: film differs from phase 4's")
+                max_err = 0.0
+            row = {"run": name, "backend": backend,
+                   "devices": [f"{r['device']} {r['rank_device']}" for r in ranks],
+                   "seconds": st["seconds"], "command_s": st["command_s"],
+                   "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                   "allreduce_calls": ranks[0]["allreduce_calls"],
+                   "allreduce_bytes": ranks[0]["allreduce_bytes"],
+                   "launches": [r["launches"] for r in ranks], "max_abs_err": max_err,
+                   "useful_rays": st["rays"]}
+            mesh14.append(row)
+            log(f"phase 14 CLI {' '.join(args)}: 2 ranks ({backend}, "
+                f"{', '.join(row['devices'])}) "
+                f"render {st['seconds']:.3f} s ({st['seconds'] / one14['seconds']:.2f}x one "
+                f"device in a fresh process), "
+                f"command {st['command_s']:.1f} s; all_reduce "
+                f"{', '.join(f'{v:.3f}' for v in row['allreduce_ms'])} ms a rank in "
+                f"{row['allreduce_calls']} calls of {row['allreduce_bytes']} bytes; film "
+                f"{'bit-equal to' if not max_err else f'max abs err {max_err:.3e} against'} "
+                f"phase 4's, every rank's equal, useful rays equal; launches "
+                f"{row['launches'][0]} [{gpu}]")
+    log("phase 14 note: ranks that share one card measure the mesh's overhead, not scaling")
+    print(json.dumps({"multi_device": {"windows": win14, "one_device_seconds": one14["seconds"],
+                                       "cli": mesh14, "card": gpu}}))
 
     lib_note = "no single PyTorch call computes this function"
     main_shape = (f"jade 20k, 1024x1024 16 spp depth 16, {it8['_state']['lanes']} lanes "

@@ -4,7 +4,6 @@ or a demo name, and config from flags."""
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 
 from ..core.camera import FixedCamera
@@ -12,18 +11,7 @@ from ..models import demo
 from ..scene import hdr as hdr_mod, objloader, procedural, serialization
 from ..scene.scene import SceneObject
 from ..utils.config import RenderConfig
-
-logger = logging.getLogger("jaderaytracerendering_tpu_torch")
-
-
-def stage(msg: str) -> None:
-    """Stage banner (the reference's 'Model load done' style lines)."""
-    if not logger.handlers:
-        h = logging.StreamHandler()
-        h.setFormatter(logging.Formatter("[%(name)s] %(levelname)s %(message)s"))
-        logger.addHandler(h)
-        logger.setLevel(logging.INFO)
-    logger.info(msg)
+from ..utils.logging import stage  # noqa: F401  (the CLIs' stage lines)
 
 
 _PROCEDURAL = {

@@ -115,7 +115,8 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     for k, d in enumerate(dirs):
         src_dir = pathlib.Path(d).resolve()
         lib = build.load_library(f"mega-other{k}", ["mega.cu"], src_dir)
-        lib.mega_render.argtypes = [ctypes.c_void_p] * 5
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mega_render.argtypes = [vp, vp, ci, ci, vp, vp, vp]
         lib.mega_render.restype = ctypes.c_int
         builds[d] = (lib, build.library_path(f"mega-other{k}", ["mega.cu"], src_dir))
 
@@ -123,7 +124,8 @@ def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
         out = torch.empty((4, cfg.width * cfg.height), dtype=torch.float32,
                           device=sd.device)
         counter = torch.zeros(1, dtype=torch.int32, device=sd.device)
-        kernels.check_rc(lib.mega_render(ctypes.byref(s), ctypes.byref(r), kernels.ptr(out),
+        kernels.check_rc(lib.mega_render(ctypes.byref(s), ctypes.byref(r), 0,
+                                         cfg.width * cfg.height, kernels.ptr(out),
                                          kernels.ptr(counter), kernels.stream(sd.device)),
                          "mega_render")
         return out

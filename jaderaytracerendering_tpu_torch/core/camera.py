@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import rng
-from .vecmath import V3, div, vnormalize, vtransform
+from .vecmath import V3, div, vnormalize, vstack, vtransform
 
 FOCAL_Z = -1.5  # film plane depth (fshader_render.fsh:464, PathTrace.cu:1434)
 
@@ -100,6 +100,17 @@ def camera_tensors(cam, device) -> tuple[torch.Tensor, torch.Tensor]:
     eye = torch.tensor(np.asarray(cam.eye, np.float32), device=device)
     rot = torch.tensor(np.asarray(cam.camera_rotate, np.float32), device=device)
     return eye, rot
+
+
+def generate_rays(eye, camera_rotate, width: int, height: int, pixel_id: torch.Tensor,
+                  sample_id, seed: int = 0, jitter: str = "cuda"):
+    """Row-vector form of ``generate_rays_p`` -> (origins, dirs), each [N,
+    3] f32: the same arithmetic, stacked (the JAX package's
+    ``generate_rays``)."""
+    o, d = generate_rays_p(torch.as_tensor(eye, dtype=torch.float32),
+                           torch.as_tensor(camera_rotate, dtype=torch.float32),
+                           width, height, pixel_id, sample_id, seed, jitter)
+    return vstack(o), vstack(d)
 
 
 def generate_rays_p(eye: torch.Tensor, camera_rotate: torch.Tensor,

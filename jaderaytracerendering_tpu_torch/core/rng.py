@@ -68,6 +68,31 @@ def uniform_sites(pixel_id, sample_id, bounce, sites, seed=0) -> torch.Tensor:
     return _to_unit(pcg_hash((h + site_col * _K_SITE) & _M32))
 
 
+def wang_hash(seed) -> torch.Tensor:
+    """The reference's GLSL hash, verbatim (fshader_render.fsh:87-94), on
+    uint32 values held in int64. For parity studies: the renderer's own
+    streams use ``pcg_hash``."""
+    seed = _u32(seed)
+    seed = (seed ^ 61) ^ (seed >> 16)
+    seed = (seed * 9) & _M32
+    seed = seed ^ (seed >> 4)
+    seed = (seed * 0x27D4EB2D) & _M32
+    return seed ^ (seed >> 15)
+
+
+def glsl_seed(px_norm_x, px_norm_y, width: int, height: int, frame_counter) -> torch.Tensor:
+    """The GLSL per-pixel seed (fshader_render.fsh:82-85): (x*1973 + y*9277
+    + frame*26699) | 1 over the pixel's integer coordinates, from float32
+    normalised coordinates in [-1, 1]."""
+    def coord(v, n):
+        v = torch.as_tensor(v, dtype=torch.float32)
+        return ((v * 0.5 + 0.5) * n).to(torch.int64) & _M32
+
+    s = (coord(px_norm_x, width) * 1973 + coord(px_norm_y, height) * 9277
+         + _u32(frame_counter) * 26699) & _M32
+    return s | 1
+
+
 class DrawSites:
     """Static site ids for every distinct random draw in one bounce
     (the same ids as the JAX package). Per-light draws use

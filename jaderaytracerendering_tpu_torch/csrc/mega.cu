@@ -43,6 +43,10 @@
 // - A persistent grid (SMs x resident blocks) whose warps take pixels
 //   from a global counter, as many as their lanes need, one atomicAdd a
 //   warp.
+// - A pixel window, as the TPU kernel's shard_px and offset: the counter
+//   hands out slots 0 .. n_px-1 of the window, the pixel is pix0 + slot
+//   (the camera ray and every draw key), and the output is indexed by
+//   slot. A multi-device render runs one window a tile shard.
 // - The packed walk tables and the shared-memory stack of path.cuh.
 // Direct refraction (DIR_REFRACT): the kernel is a template on HR; the
 // march (refract_march_dev, with its own walk, the second call site, in
@@ -71,7 +75,7 @@ __host__ __device__ inline size_t mega_smem_bytes(const SceneArgs& s) {
 
 template <bool HR>
 __global__ void __launch_bounds__(MEGA_THREADS, MEGA_MIN_BLOCKS)
-mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
+mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_px, float* __restrict__ out,
                    int* __restrict__ next_pixel) {
   const int st_hdr = s.n_emit, st_cont = s.n_emit + 1;
   const unsigned lane = threadIdx.x & 31u;
@@ -80,7 +84,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
   // the bounce's front, directions and march, made once a bounce
   Front& f = reinterpret_cast<Front*>(walk_stack + blockDim.x * s.stack_size)[threadIdx.x];
 
-  int pix = -1;  // the thread's pixel; -1: take one; >= npix: the film is done
+  int pix = -1;  // the thread's slot of the window; -1: take one; >= n_px: the window is done
   int k = 0;     // its sample (sample_base + k)
   V sum = zero3;
   int nray = 0;  // useful rays (integers, exact in the f32 output)
@@ -109,7 +113,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
     V qo = zero3;
     int qx = -1;
     bool q_any = false;
-    if (pix >= 0 && pix < r.npix && !walking) {
+    if (pix >= 0 && pix < n_px && !walking) {
       // use the ended walk's result and make the next query, in passes over
       // the steps; each device function has one call site, so lanes of a
       // warp that stand at different steps run it together
@@ -221,9 +225,9 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
           start = true;
         } else {
           out[pix] = sum.x;
-          out[r.npix + pix] = sum.y;
-          out[2 * r.npix + pix] = sum.z;
-          out[3 * r.npix + pix] = (float)nray;
+          out[n_px + pix] = sum.y;
+          out[2 * n_px + pix] = sum.z;
+          out[3 * n_px + pix] = (float)nray;
           pix = -1;
         }
       }
@@ -241,13 +245,14 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
         k = 0;
         sum = zero3;
         nray = 0;
-        start = pix < r.npix;
+        start = pix < n_px;
       }
     }
     if (start) {  // the camera ray of sample k (wavefront.trace_radiance_p)
-      h0 = sample_hash((uint32_t)pix, r.sample_base + (uint32_t)k);
+      const uint32_t gpix = (uint32_t)(pix0 + pix);  // the film's pixel
+      h0 = sample_hash(gpix, r.sample_base + (uint32_t)k);
       qo = eye;
-      qd = unit_eps(camera_dir(r, (uint32_t)pix, h0 + r.seed * K_SEED));
+      qd = unit_eps(camera_dir(r, gpix, h0 + r.seed * K_SEED));
       qx = -1;
       q_any = false;
       step = ST_PRIMARY;
@@ -258,7 +263,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
       walk_begin(s, qo, unit_eps(qd), qx, q_any, w);
       walking = true;
     }
-    if (!__any_sync(0xffffffffu, pix < r.npix)) break;  // every lane holds a pixel here
+    if (!__any_sync(0xffffffffu, pix < n_px)) break;  // every lane holds a slot here
     if (walking) walking = !walk_run(s, w, MEGA_WALK_SLICE);
   }
 }
@@ -267,18 +272,19 @@ mega_render_kernel(SceneArgs s, RenderArgs r, float* __restrict__ out,
 
 extern "C" {
 
-// Radiance sums [3, npix] and useful rays [1, npix] into out [4, npix];
-// next_pixel: one int, zero at the launch (the wrapper's).
-int mega_render(const SceneArgs* s, const RenderArgs* r, float* out, int* next_pixel,
-                void* stream) {
-  if (r->npix <= 0) return 0;
+// Radiance sums [3, n_px] and useful rays [1, n_px] of the pixels pix0 ..
+// pix0 + n_px - 1 into out [4, n_px]; next_pixel: one int, zero at the
+// launch (the wrapper's).
+int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out,
+                int* next_pixel, void* stream) {
+  if (n_px <= 0) return 0;
   auto kernel = s->has_refract ? mega_render_kernel<true> : mega_render_kernel<false>;
   size_t smem = mega_smem_bytes(*s);
   long long blocks = 0;
-  int rc = persistent_grid(kernel, MEGA_THREADS, smem, (r->npix + MEGA_THREADS - 1) / MEGA_THREADS,
+  int rc = persistent_grid(kernel, MEGA_THREADS, smem, (n_px + MEGA_THREADS - 1) / MEGA_THREADS,
                            blocks);
   if (rc) return rc;
-  kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(*s, *r, out,
+  kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(*s, *r, pix0, n_px, out,
                                                                           next_pixel);
   return (int)cudaGetLastError();
 }

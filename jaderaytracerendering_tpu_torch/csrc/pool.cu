@@ -55,11 +55,12 @@
 struct PoolArgs {
   float* fs;        // [15, M]
   int* is;          // [6, M]
-  float* film;      // [npix, 3] radiance sums
+  float* film;      // [n_px, 3] radiance sums of the window's pixels
   long long* cnt;   // [4] next sample, finished samples, useful rays, spare
   long long total;  // samples in the queue
   int m;            // lanes
-  int npix;
+  int n_px;         // the pixel window: slot = queue index % n_px,
+  int pix0;         // pixel = pix0 + slot
   float* rf;        // [9, M] the march's exit dir, exit point, rate (HR only)
   int* ri;          // [2, M] the march's escaped flag, last triangle (HR only)
 };
@@ -255,9 +256,9 @@ spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, unsigned long long* 
   for (int k = threadIdx.x; k < n_got; k += SPAWN_THREADS) {
     const int i = t0 + order[k];
     const long long idx = base + k;
-    int slot = (int)(idx % q.npix);
-    uint32_t pix = (uint32_t)slot;
-    uint32_t smp = (uint32_t)(idx / q.npix) + r.sample_base;
+    int slot = (int)(idx % q.n_px);
+    uint32_t pix = (uint32_t)(q.pix0 + slot);
+    uint32_t smp = (uint32_t)(idx / q.n_px) + r.sample_base;
     q.is[I_SLOT * m + i] = slot;
     q.is[I_PIX * m + i] = (int)pix;
     q.is[I_SMP * m + i] = (int)smp;

@@ -25,10 +25,13 @@ render equals the megakernel's and the scan engine's sample for sample;
 only the order of the sums within a pixel differs. The host reads the
 finished-sample counter once per iteration.
 
+A queue runs over a pixel window (``render_window_pool``): the whole
+film, or a tile shard of a multi-device render (parallel/sharding.py),
+which the JAX package gives as ``pixel_ids`` (ops/lanes.py).
+
 Not carried over, because they exist for the TPU: ``FILM_TILE`` (the
 whole film runs as one queue; spp is split only where ``npix * spp``
 would reach 2^31), the 5-buffer packed carry and the [16, M] row tables.
-The film-shard path (``pixel_ids``) waits for the multi-device port.
 """
 
 from __future__ import annotations
@@ -73,30 +76,42 @@ def run_pool(st: PoolState, steps=KERNELS, max_iters: int = MAX_ITERS) -> int:
     return it
 
 
+def render_window_pool(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,
+                       spp: int, pool_m: Optional[int] = None) -> tuple[float, int]:
+    """Pool render of ``spp`` samples from ``sample_base`` of the pixels
+    pix0 .. pix0+len(acc)-1 (one private queue; spp split only where the
+    queue would reach 2^31 samples), their radiance sums added into
+    ``acc`` [n_px, 3] in place -> (useful rays, counted exactly; loop
+    iterations). ``pool_m`` lanes (default ``POOL_LANES``, capped at the
+    queue length)."""
+    n_px = acc.shape[0]
+    eye, rot = camera_mod.camera_tensors(cam, sd.device)
+    lanes = POOL_LANES if pool_m is None else int(pool_m)
+    spp_chunk = max(1, min(spp, QUEUE_LIMIT // max(n_px, 1)))
+    rays = iters = done = 0
+    while done < spp and n_px:
+        step = min(spp_chunk, spp - done)
+        total = n_px * step
+        st = PoolState.create(sd, cfg, eye, rot, min(lanes, total), total,
+                              sample_base + done, pix0, n_px)
+        iters += run_pool(st)
+        acc += st.film
+        rays += int(st.cnt[C_RAYS])
+        done += step
+    return float(rays), iters
+
+
 def render_film_pool(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
                      stats: Optional[dict] = None, pool_m: Optional[int] = None) -> Film:
     """Pool render of cfg.spp samples per pixel (samples ``film.count ..``)
-    -> Film. ``pool_m`` lanes (default ``POOL_LANES``, capped at the queue
-    length). ``stats``, when given, receives ``rays`` (useful rays,
-    counted exactly) and ``iterations``."""
-    npix = cfg.width * cfg.height
+    -> Film, through ``render_window_pool`` over the whole film. ``stats``,
+    when given, receives ``rays`` (useful rays, counted exactly) and
+    ``iterations``."""
     if film is None:
         film = Film.create(cfg.height, cfg.width, sd.device)
-    eye, rot = camera_mod.camera_tensors(cam, sd.device)
-    lanes = POOL_LANES if pool_m is None else int(pool_m)
-    spp_chunk = max(1, min(cfg.spp, QUEUE_LIMIT // npix))
-    accum = film.accum
-    rays = iters = done = 0
-    while done < cfg.spp:
-        step = min(spp_chunk, cfg.spp - done)
-        total = npix * step
-        st = PoolState.create(sd, cfg, eye, rot, min(lanes, total), total,
-                              film.count + done)
-        iters += run_pool(st)
-        accum = accum + st.film.reshape(cfg.height, cfg.width, 3)
-        rays += int(st.cnt[C_RAYS])
-        done += step
+    acc = film.accum.reshape(-1, 3).clone()
+    rays, iters = render_window_pool(sd, cam, cfg, acc, 0, film.count, cfg.spp, pool_m)
     if stats is not None:
-        stats["rays"] = stats.get("rays", 0.0) + float(rays)
+        stats["rays"] = stats.get("rays", 0.0) + rays
         stats["iterations"] = stats.get("iterations", 0) + iters
-    return Film(accum, film.count + done)
+    return Film(acc.reshape(cfg.height, cfg.width, 3), film.count + cfg.spp)

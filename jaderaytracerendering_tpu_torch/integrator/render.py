@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core import camera as camera_mod
@@ -98,27 +99,31 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     if cfg.engine != "scan":
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
-    npix = cfg.width * cfg.height
     eye, rot = camera_mod.camera_tensors(cam, sd.device)
     sppb = max(1, min(cfg.spp_batch, cfg.spp))
-    chunk_px = max(1, min(npix, SCAN_LANES // sppb))
     accum = film.accum.reshape(-1, 3).clone()
     rays = 0.0
     done = 0
     while done < cfg.spp:
         step = min(sppb, cfg.spp - done)
-        for c0 in range(0, npix, chunk_px):
-            ids = torch.arange(c0, min(c0 + chunk_px, npix), dtype=torch.int64,
-                               device=sd.device)
-            out, n = render_batch(sd, eye, rot, ids, film.count + done, cfg, step)
-            accum[c0:c0 + ids.shape[0]] += out
-            rays += float(n.sum())
+        rays += render_window(sd, eye, rot, accum, 0, film.count + done, cfg, step)
         done += step
         if progress:
             progress(done, cfg.spp)
     if stats is not None:
         stats["rays"] = stats.get("rays", 0.0) + rays
     return Film(accum.reshape(cfg.height, cfg.width, 3), film.count + done)
+
+
+def render_image(sd, cam, cfg: RenderConfig) -> np.ndarray:
+    """The whole pipeline -> display u8 RGB [H, W, 3], row 0 at the top
+    (the film's row 0 is the bottom of the scene, PathTrace.cu:1431), as
+    the render CLI writes it: ``render_film``, the film's mean, then
+    ``post/tonemap.finalize``."""
+    from ..post import tonemap
+
+    film = render_film(sd, cam, cfg)
+    return tonemap.finalize(film.mean().cpu().numpy()[::-1], cfg.tonemap)
 
 
 def display_frame(accum: torch.Tensor, count, mode: str) -> torch.Tensor:
@@ -141,18 +146,23 @@ def display_banded(accum: torch.Tensor, frame_idx: int, bands: int, spp: int,
 
 
 def render_window(sd, eye, rot, out: torch.Tensor, p0: int, sample_base: int,
-                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> None:
+                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> float:
     """The torch integrator of ``cfg`` over the pixels p0 .. p0+len(out)-1,
     chunked by ``SCAN_LANES``: adds their radiance sums over ``sppb``
-    samples from ``sample_base`` into ``out`` [n, 3] in place. ``query``
-    as in ``render_batch``."""
+    samples from ``sample_base`` into ``out`` [n, 3] in place -> the
+    useful rays traced (0 for the preview integrator, which counts none).
+    ``query`` as in ``render_batch``."""
     n = out.shape[0]
     chunk_px = max(1, SCAN_LANES // sppb)
+    rays = 0.0
     for c0 in range(0, n, chunk_px):
         ids = torch.arange(p0 + c0, p0 + min(c0 + chunk_px, n), dtype=torch.int64,
                            device=sd.device)
-        rad, _ = render_batch(sd, eye, rot, ids, sample_base, cfg, sppb, query=query)
+        rad, n_rays = render_batch(sd, eye, rot, ids, sample_base, cfg, sppb, query=query)
         out[c0:c0 + ids.shape[0]] += rad
+        if n_rays is not None:
+            rays += float(n_rays.sum())
+    return rays
 
 
 def _preview_window(sd, cam, cfg: RenderConfig, out: torch.Tensor, p0: int,

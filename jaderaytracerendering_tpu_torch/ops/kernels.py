@@ -55,7 +55,8 @@ class RenderArgs(ctypes.Structure):
 
 class PoolArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_void_p) for k in ("fs", "is", "film", "cnt")] \
-        + [("total", ctypes.c_longlong), ("m", ctypes.c_int), ("npix", ctypes.c_int)] \
+        + [("total", ctypes.c_longlong)] \
+        + [(k, ctypes.c_int) for k in ("m", "n_px", "pix0")] \
         + [(k, ctypes.c_void_p) for k in ("rf", "ri")]
 
 
@@ -64,7 +65,7 @@ def library() -> ctypes.CDLL:
     """Build (first use, keyed by the sources' hash) and load csrc/*.cu."""
     lib = build.load_library("kernels", SOURCES)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, args in (("mega_render", [vp, vp, vp, vp, vp]),
+    for name, args in (("mega_render", [vp, vp, ci, ci, vp, vp, vp]),
                        ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
                        ("postfx", [vp, vp, ci, ci, ci, ci, ci, cf, cf, ci, cf, cf, ci, vp]),
                        ("spawn_scratch_words", [ci]),

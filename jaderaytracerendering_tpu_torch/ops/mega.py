@@ -20,19 +20,30 @@ from . import kernels
 from .kernels import LAUNCHES
 
 
-def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int) -> torch.Tensor:
-    """The plain PyTorch version: [4, npix] f32, rows 0-2 the radiance
-    sums over samples sample_base .. sample_base+spp-1 of every pixel,
-    row 3 the useful rays (integrator/wavefront.trace_radiance_p, with the
-    plain BVH walk on any device)."""
+def _window(cfg, pix0: int, n_px) -> int:
+    """The window's pixel count (the rest of the film by default), checked."""
+    npix = cfg.width * cfg.height
+    n_px = npix - pix0 if n_px is None else int(n_px)
+    if not (0 <= pix0 and 0 <= n_px and pix0 + n_px <= npix):
+        raise ValueError(f"pixel window [{pix0}, {pix0 + n_px}) outside the film's "
+                         f"{npix} pixels")
+    return n_px
+
+
+def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int = 0,
+                      n_px: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version: [4, n_px] f32, rows 0-2 the radiance
+    sums over samples sample_base .. sample_base+spp-1 of the pixels pix0
+    .. pix0+n_px-1, row 3 the useful rays (integrator/wavefront.trace_radiance_p,
+    with the plain BVH walk on any device)."""
     from ..integrator.render import SCAN_LANES, render_batch
     from ..integrator.wavefront import nearest_planes_plain
 
-    npix = cfg.width * cfg.height
-    out = torch.empty((4, npix), dtype=torch.float32, device=sd.device)
+    n_px = _window(cfg, pix0, n_px)
+    out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
     chunk = max(1, SCAN_LANES // max(spp, 1))
-    for c0 in range(0, npix, chunk):
-        ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,
+    for c0 in range(0, n_px, chunk):
+        ids = torch.arange(pix0 + c0, pix0 + min(c0 + chunk, n_px), dtype=torch.int64,
                            device=sd.device)
         rad, rays = render_batch(sd, eye, rot, ids, sample_base, cfg, spp,
                                  query=nearest_planes_plain)
@@ -41,19 +52,22 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int) -> torch.Te
     return out
 
 
-def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg,
-                sample_base: int, spp: int) -> torch.Tensor:
-    """Render ``spp`` samples of every pixel -> [4, npix] f32 (radiance
-    sums, useful rays). ``eye`` [3] and ``rot`` [4, 4] are the camera."""
+def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int, spp: int,
+                pix0: int = 0, n_px: int | None = None) -> torch.Tensor:
+    """Render ``spp`` samples of the pixel window pix0 .. pix0+n_px-1 (the
+    whole film by default) -> [4, n_px] f32 (radiance sums, useful rays),
+    column j for pixel pix0 + j. ``eye`` [3] and ``rot`` [4, 4] are the
+    camera."""
     if sd.device.type == "cpu":
-        return mega_render_plain(sd, eye, rot, cfg, sample_base, spp)
+        return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px)
+    n_px = _window(cfg, pix0, n_px)
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
     r = kernels.render_args(eye, rot, cfg, sample_base, spp)
-    out = torch.empty((4, cfg.width * cfg.height), dtype=torch.float32,
-                      device=sd.device)
+    out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
     next_pixel = torch.zeros(1, dtype=torch.int32, device=sd.device)  # the work counter
-    rc = kernels.library().mega_render(ctypes.byref(s), ctypes.byref(r), kernels.ptr(out),
-                                       kernels.ptr(next_pixel), kernels.stream(sd.device))
+    rc = kernels.library().mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0), n_px,
+                                       kernels.ptr(out), kernels.ptr(next_pixel),
+                                       kernels.stream(sd.device))
     kernels.check_rc(rc, "mega_render")
     LAUNCHES["mega_render"] += 1
     return out
@@ -82,11 +96,7 @@ def render_preview_mega(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_ba
     ``sample_base`` into ``band`` [n_px, 3] f32 (the window's rows of a
     film) in place and returns it. ``eye`` [3] and ``rot`` [4, 4] are the
     camera."""
-    npix = cfg.width * cfg.height
-    n_px = int(band.shape[0])
-    if not (0 <= pix_offset and pix_offset + n_px <= npix):
-        raise ValueError(f"pixel window [{pix_offset}, {pix_offset + n_px}) outside "
-                         f"the film's {npix} pixels")
+    n_px = _window(cfg, pix_offset, int(band.shape[0]))
     if sd.device.type == "cpu":
         return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, band, pix_offset)
     kernels.check_tensor("band", band, torch.float32, (n_px, 3), sd.device)

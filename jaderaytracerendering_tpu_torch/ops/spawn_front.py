@@ -5,8 +5,9 @@ Replaces the JAX package's ops/pallas/spawn_front.py ``spawn_primary``
 (-> ``_kernel``) and the primary trace after it (pool.py:316-352). Fresh
 lanes (not active) take the next queue samples in lane order:
 ``k`` = inclusive count of fresh lanes up to the lane, ``index = next + k
-- 1``, ``got = fresh & index < total``, ``slot = pix = index % npix``,
-``smp = index // npix + sample_base``; the queue advances by
+- 1``, ``got = fresh & index < total``, ``slot = index % n_px``, ``pix =
+pix0 + slot`` (the state's pixel window, ops/lanes.py), ``smp = index //
+n_px + sample_base``; the queue advances by
 ``min(fresh, total - next)``. A lane that got a sample traces its
 jittered camera ray: a hit starts its path (bounce 0, T = 1, L = 0, le0 =
 the hit's emission), a miss adds the sky to the film, finishes the sample
@@ -37,10 +38,10 @@ def spawn_primary_plain(st: PoolState, aux: torch.Tensor | None = None) -> None:
     nxt = st.cnt[C_NEXT]
     index = nxt + k - 1
     got = fresh & (index < st.total)
-    new_slot = torch.remainder(index, st.npix)
+    new_slot = torch.remainder(index, st.n_px)
     slot = torch.where(got, new_slot, st.is_[I_SLOT].long())
-    pix = torch.where(got, new_slot, st.is_[I_PIX].long())
-    smp = torch.where(got, torch.div(index, st.npix, rounding_mode="floor")
+    pix = torch.where(got, new_slot + st.pix0, st.is_[I_PIX].long())
+    smp = torch.where(got, torch.div(index, st.n_px, rounding_mode="floor")
                       + st.sample_base, st.is_[I_SMP].long())
     st.is_[I_SLOT] = slot.to(torch.int32)
     st.is_[I_PIX] = pix.to(torch.int32)

@@ -141,3 +141,14 @@ def read_obj(filepath: str, transform: np.ndarray | None = None,
         with open(filepath, "r") as fh:
             parsed = parse_obj_text(fh.read(), compat_slash_faces)
     return mesh_from_arrays(*parsed, transform, normalize, compat_aabb_bug)
+
+
+def write_obj(filepath: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    """Minimal OBJ writer (for shipping procedural demo assets), byte for
+    byte the JAX package's: vertices as %.8g, faces 1-based."""
+    with open(filepath, "w") as fh:
+        fh.write("# jaderaytracerendering_tpu procedural mesh\n")
+        for x, y, z in vertices:
+            fh.write(f"v {x:.8g} {y:.8g} {z:.8g}\n")
+        for a, b, c in faces + 1:
+            fh.write(f"f {a} {b} {c}\n")

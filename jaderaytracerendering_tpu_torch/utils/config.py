@@ -67,7 +67,7 @@ class RenderConfig:
     front_kernel: bool = True         # ignored (TPU)
     bvh_leaf_size: int = 8            # PathTrace.cpp:1086 / PathTrace.cu:1565
     bvh_stack_size: int = 128         # PathTrace.cu:34; must cover depth + 1
-    mesh_shape: Optional[Tuple[int, ...]] = None  # multi-device (not ported)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # multi-device (tile, spp)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
@@ -83,3 +83,30 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---- reference-parity presets (the JAX package's, field for field) ----------
+
+def cuda_parity(**kw) -> RenderConfig:
+    """PathTrace.cu settings: RR 0.9, depth cap 128, CUDA jitter, ACES."""
+    base = dict(rr_rate=0.9, max_depth=128, jitter="cuda", tonemap="aces",
+                engine="pool")
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+def gl_render_parity(**kw) -> RenderConfig:
+    """fshader_render.fsh settings: RR 0.8, depth 16, GL jitter, Reinhard
+    pass3. (The GL encoding drops refract fields; pair with a diffuse
+    scene for full parity: models.demo.diffuse_scene.)"""
+    base = dict(rr_rate=0.8, max_depth=16, jitter="gl", tonemap="reinhard")
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+def gl_preview_parity(**kw) -> RenderConfig:
+    """fshader_preview.fsh settings: 2-bounce no-NEE progressive preview."""
+    base = dict(integrator="preview", preview_bounces=2, jitter="gl",
+                tonemap="reinhard", spp=1, spp_batch=1)
+    base.update(kw)
+    return RenderConfig(**base)

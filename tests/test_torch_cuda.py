@@ -463,3 +463,88 @@ def test_native_jade_scene_renders_through_the_megakernel(jade_cuda):
     p = megak.mega_render_plain(sd, eye, rot, cfg, 0, cfg.spp)
     torch.cuda.synchronize()
     _mega_close(k, p)
+
+
+# pixel windows of a 64x48 film (3072 pixels): the first, one that starts
+# off a 128-thread block edge, the last and shorter one
+WINDOWS = [(0, 1024), (1111, 1024), (2135, 937)]
+
+
+def test_mega_windows_are_bit_equal_to_the_whole_film(jade_cuda):
+    """The megakernel over a pixel window (counter slots, pix = pix0 +
+    slot, output by slot) renders the whole film's columns bit for bit,
+    useful rays included, over several grid passes of one window."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=3, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
+    whole = megak.mega_render(sd, eye, rot, cfg, 2, cfg.spp)
+    for pix0, n_px in WINDOWS + [(5, 1), (3071, 1)]:
+        win = megak.mega_render(sd, eye, rot, cfg, 2, cfg.spp, pix0, n_px)
+        assert win.shape == (4, n_px)
+        assert torch.equal(win, whole[:, pix0:pix0 + n_px]), (pix0, n_px)
+    big = RenderConfig(width=640, height=480, spp=1, max_depth=3)
+    whole = megak.mega_render(sd, eye, rot, big, 0, 1)
+    win = megak.mega_render(sd, eye, rot, big, 0, 1, 1001, 300_000)
+    assert torch.equal(win, whole[:, 1001:301_001])
+
+
+def test_pool_window_matches_the_mega_window(jade_cuda):
+    """The pool's kernels over a pixel window (the spawn's pix = pix0 +
+    slot; front, trace and resolve unchanged) against the megakernel's
+    window: radiance within 1e-3 + 1e-4 x max, useful rays equal."""
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=3, max_depth=5)
+    for pix0, n_px in WINDOWS:
+        kernels.reset_launches()
+        acc_p = torch.zeros((n_px, 3), device="cuda")
+        rays_p, _ = tpool.render_window_pool(sd, ds.camera, cfg, acc_p, pix0, 4, cfg.spp,
+                                             pool_m=700)
+        assert min(kernels.LAUNCHES[k] for k in ("spawn_primary", "trace_segments",
+                                                 "front_bounce", "resolve_bounce")) > 0
+        acc_m = torch.zeros((n_px, 3), device="cuda")
+        rays_m = tmega.render_window_mega(sd, ds.camera, cfg, acc_m, pix0, 4, cfg.spp)
+        assert rays_p == rays_m
+        torch.testing.assert_close(acc_p, acc_m, rtol=1e-3,
+                                   atol=1e-4 * float(acc_m.abs().max()))
+
+
+@pytest.mark.parametrize("mesh,engine", [("2x1", "mega"), ("1x2", "mega"), ("2x1", "pool")])
+def test_two_ranks_on_one_card_over_gloo(jade_cuda, tmp_path, mesh, engine):
+    """The render CLI with --mesh, its 2 ranks sharing card 0 over gloo,
+    against the single-device CLI: a tile-only mega mesh bit for bit, the
+    rest within rtol 1e-4 + atol 1e-5 x max (the spp split sums two
+    halves; the pool's film adds run in another order); equal useful
+    rays; every rank's film equal."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from jaderaytracerendering_tpu_torch.cli import render
+
+    args = ["--tris", "2000", "--width", "64", "--height", "48", "--spp", "4",
+            "--max-depth", "5", "--engine", engine]
+    one, s_one = render.main(args + ["--out", str(tmp_path / "one.bmp")])
+    code = ("import json, sys\n"
+            "from jaderaytracerendering_tpu_torch.cli import render\n"
+            "film, stats = render.main(sys.argv[1:])\n"
+            "print('STATS ' + json.dumps(stats))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    repo = os.path.join(os.path.dirname(__file__), "..")
+    res = subprocess.run([sys.executable, "-c", code, *args, "--mesh", mesh, "--out",
+                          str(tmp_path / "mesh.bmp"), "--save-film", str(tmp_path / "m.npz")],
+                         cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    stats = json.loads([ln for ln in res.stdout.splitlines()
+                        if ln.startswith("STATS ")][-1][len("STATS "):])
+    assert [r["backend"] for r in stats["ranks"]] == ["gloo", "gloo"]
+    assert len({r["film_sha256"] for r in stats["ranks"]}) == 1
+    assert stats["rays"] == s_one["rays"]
+    film = torch.from_numpy(np.load(tmp_path / "m.npz")["accum"])
+    want = one.accum.cpu()
+    if (mesh, engine) == ("2x1", "mega"):
+        assert torch.equal(film, want)
+    else:
+        torch.testing.assert_close(film, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))

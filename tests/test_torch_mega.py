@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 
 SIZE = dict(width=8, height=8, spp=4, spp_batch=4, max_depth=4,
             rays_per_launch=64, mega_gather="take")
+MEGA_RTOL, MEGA_ATOL_FRAC = 1e-5, 1e-6  # the megakernel-vs-plain bound (tests/test_torch_cuda.py)
 
 
 def test_mega_cornell_matches_jax_mega():
@@ -62,6 +63,39 @@ def test_mega_batches_equal_scan(batch):
     np.testing.assert_allclose(a.accum.numpy(), b.accum.numpy(), rtol=1e-5,
                                atol=1e-5 * float(b.accum.abs().max()))
     assert s_mega["rays"] == s_scan["rays"]
+
+
+# pixel windows (pix0, n_px) of the 64-pixel film: the first, a ragged
+# middle one, a last one shorter than the others
+WINDOWS = [(0, 16), (21, 19), (50, 14)]
+
+
+def test_mega_windows_equal_the_whole_film():
+    """``mega_render`` over a pixel window (the plain version on the CPU)
+    equals the window's columns of the whole film: useful rays exact,
+    radiance within MEGA_RTOL / MEGA_ATOL_FRAC (torch's CPU ``pow`` and
+    ``atan2`` round their vectorised body and their scalar tail apart, so
+    a window that does not start on a vector boundary moves a pixel's
+    last bit; the kernel is held bit for bit on the card,
+    tests/test_torch_cuda.py); a window outside the film is refused."""
+    ds = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
+    ds.camera.r = 2.0
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
+    eye, rot = torch.tensor(ds.camera.eye, dtype=torch.float32), \
+        torch.tensor(ds.camera.camera_rotate, dtype=torch.float32)
+    cfg = TConfig(**SIZE)
+    whole = megak.mega_render(st, eye, rot, cfg, 3, 4)
+    assert whole.shape == (4, 64)
+    for pix0, n_px in WINDOWS:
+        win = megak.mega_render(st, eye, rot, cfg, 3, 4, pix0, n_px)
+        want = whole[:, pix0:pix0 + n_px]
+        assert torch.equal(win[3], want[3]), (pix0, n_px)
+        np.testing.assert_allclose(win[:3].numpy(), want[:3].numpy(), rtol=MEGA_RTOL,
+                                   atol=MEGA_ATOL_FRAC * float(whole[:3].abs().max()))
+    assert torch.equal(megak.mega_render(st, eye, rot, cfg, 3, 4, 48), whole[:, 48:])
+    for pix0, n_px in ((60, 5), (-1, 3)):
+        with pytest.raises(ValueError, match="pixel window"):
+            megak.mega_render(st, eye, rot, cfg, 3, 4, pix0, n_px)
 
 
 def test_wrapper_rejects_a_non_cuda_device():

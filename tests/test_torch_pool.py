@@ -21,6 +21,7 @@ from jaderaytracerendering_tpu.integrator import pool as jpool
 from jaderaytracerendering_tpu.models import demo as jdemo
 from jaderaytracerendering_tpu.scene.scene import assemble as jassemble
 from jaderaytracerendering_tpu.utils.config import RenderConfig as JConfig
+from jaderaytracerendering_tpu_torch.integrator import mega as tmega
 from jaderaytracerendering_tpu_torch.integrator import pool as tpool
 from jaderaytracerendering_tpu_torch.integrator import render as trender
 from jaderaytracerendering_tpu_torch.models import demo as tdemo
@@ -125,3 +126,25 @@ def test_pool_splits_spp_below_the_queue_limit(scenes, monkeypatch):
     assert calls == [128, 128] and two.count == 4
     np.testing.assert_allclose(two.accum.numpy(), one.accum.numpy(), rtol=1e-5,
                                atol=1e-6 * float(one.accum.abs().max()))
+
+
+@pytest.mark.parametrize("pix0,n_px", [(0, 16), (21, 19), (50, 14)],
+                         ids=["first", "ragged", "last"])
+def test_pool_window_equals_the_whole_film(scenes, pix0, n_px):
+    """A pool queue over a pixel window (``render_window_pool``: the spawn
+    maps slot -> pix0 + slot, the front and resolve read the lane's pixel
+    and slot) equals the window's rows of the whole-film pool render and
+    the megakernel's window; the window's useful rays equal the mega
+    window's. Tolerance: the pool's film adds run in another order within
+    a pixel (rtol 1e-5, atol 1e-6 x max)."""
+    *_, t, st = scenes
+    cfg = TConfig(**SIZE)
+    whole = tpool.render_film_pool(st, t.camera, cfg, pool_m=48).accum.reshape(-1, 3)
+    acc = torch.zeros((n_px, 3))
+    rays, iters = tpool.render_window_pool(st, t.camera, cfg, acc, pix0, 0, cfg.spp, pool_m=48)
+    acc_m = torch.zeros((n_px, 3))
+    rays_m = tmega.render_window_mega(st, t.camera, cfg, acc_m, pix0, 0, cfg.spp)
+    scale = float(whole.abs().max())
+    for want in (whole[pix0:pix0 + n_px], acc_m):
+        np.testing.assert_allclose(acc.numpy(), want.numpy(), rtol=1e-5, atol=1e-6 * scale)
+    assert rays == rays_m and iters > 0

@@ -315,3 +315,27 @@ def test_stacked_trace_ties_go_to_the_minimum_id():
                         & (sp[2] == sp[2][i]).all(1))[0] for i in bi[0].numpy()]
     assert sum(len(w) > 1 for w in twins) >= 8
     assert all(i == w.min() for i, w in zip(bi[0].numpy(), twins))
+
+
+def test_spawn_window_maps_slots_to_pixels(jade):
+    """A queue over the pixel window [40, 47): slot = index % 7, pix = 40 +
+    slot, smp = index // 7 + sample_base; the camera rays are those of the
+    film's pixels; the film has the window's 7 rows."""
+    *_, t, st = jade
+    cfg = TConfig(**CFG)
+    eye, rot = tcamera.camera_tensors(t.camera, "cpu")
+    p = PoolState.create(st, cfg, eye, rot, 32, 7 * 3, 5, pix0=40, n_px=7)
+    aux = torch.zeros((8, 32))
+    spawn_front.spawn_primary_plain(p, aux)
+    index = torch.arange(21)
+    got = aux[7] == 1
+    assert got.sum() == 21 and bool(got[:21].all())
+    assert p.film.shape == (7, 3) and int(p.cnt[C_NEXT]) == 21
+    assert torch.equal(p.is_[I_SLOT][:21], (index % 7).int())
+    assert torch.equal(p.is_[I_PIX][:21], (40 + index % 7).int())
+    assert torch.equal(p.is_[I_SMP][:21], (index // 7 + 5).int())
+    _, d = tcamera.generate_rays_p(eye, rot, 8, 8, 40 + index % 7, index // 7 + 5, cfg.seed)
+    np.testing.assert_allclose(aux[0:3, :21].numpy(), torch.stack([d.x, d.y, d.z]).numpy(),
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="pixel window"):
+        PoolState.create(st, cfg, eye, rot, 32, 7, 5, pix0=60, n_px=7)
