@@ -84,6 +84,19 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      cards or more, ``--mesh 2x1`` over NCCL): every rank's film equal,
      each rank's launches, render seconds and time in ``all_reduce``
      (CUDA events); a ``multi_device`` JSON line.
+ 15. the oracle gate: the RMSE gate's jade scene (300 statue triangles,
+     r 2.0) at 8x8, 64 spp, depth 4 through ``render_film`` with engines
+     mega, pool and scan on the card, each film within relative RMSE 1e-3
+     of the port's CPU oracle (cpuref/integrator.py, ``rmse_gate.check_rmse``)
+     with equal useful rays; then, the camera on the statue (which the
+     r 2.0 view's primary rays miss at 8x8), the jade statue at 16 spp
+     through the three engines and the DIR_REFRACT statue (200 triangles,
+     depth 3, 8 march steps) at 16 spp through mega and pool; each
+     engine's launches read;
+ 16. the bench (``python -m jaderaytracerendering_tpu_torch.bench``) at
+     its defaults with ``--engine mega`` and ``--engine pool``, each a
+     subprocess with a timeout: 8 rep lines, a positive rate, the engine's
+     kernels launched, equal useful rays; both JSON lines printed.
 
 A kernel's device time comes from CUDA events around calls queued behind
 a spin kernel (``device_ms_each``), not from torch.profiler: on the
@@ -94,9 +107,10 @@ phase 13's steady frames), traced again until the trace holds what it
 is read for.
 
 Every phase prints one line; any failure raises (exit code != 0), a
-failed or hung rank too (each CLI run of phase 14 is a subprocess with a
-timeout). The line before the last is the kernels' JSON record, the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+failed or hung rank or bench too (each CLI run of phase 14 and each bench
+of phase 16 is a subprocess with a timeout). The line before the last is
+the kernels' JSON record, the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -167,13 +181,6 @@ PREVIEW_WARM_FRAMES = 8          # of which the first 8 (first launches,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -550,6 +557,10 @@ def hold_pool_kernels(sd, cam, cfg, m: int, iters: int, what: str):
     return out
 
 
+ORACLE_TRIS = 300                # phase 15: the RMSE gate's jade scene (cli/rmse_gate.py)
+ORACLE_REFRACT_TRIS = 200        # phase 15: the DIR_REFRACT statue (tests/test_integrator.py)
+BENCH_TIMEOUT_S = 300            # phase 16: one bench run (a fresh process, scene, 9 renders)
+BENCH_REPS = 8                   # phase 16: the bench's default --reps
 MESH_TIMEOUT_S = 300             # phase 14: a CLI run over a mesh (rendezvous, scene, render)
 MESH_RTOL, MESH_ATOL_FRAC = 1e-4, 1e-5  # phase 14: an spp split against one device (the
                                  # JAX package's tests/test_parallel.py tolerance)
@@ -598,8 +609,11 @@ def main() -> None:
     from jaderaytracerendering_tpu_torch.cli import pool_sweep
     from jaderaytracerendering_tpu_torch.cli import preview as cli_preview
     from jaderaytracerendering_tpu_torch.cli import render as cli_render
+    from jaderaytracerendering_tpu_torch.cli import rmse_gate
+    from jaderaytracerendering_tpu_torch.cli.common import card
     from jaderaytracerendering_tpu_torch.core import camera as camera_mod
     from jaderaytracerendering_tpu_torch.core.film import Film
+    from jaderaytracerendering_tpu_torch.cpuref import integrator as oracle
     from jaderaytracerendering_tpu_torch.integrator import mega as mega_mod
     from jaderaytracerendering_tpu_torch.integrator import pool, wavefront
     from jaderaytracerendering_tpu_torch.integrator import render as trender
@@ -1257,6 +1271,88 @@ def main() -> None:
     print(json.dumps({"multi_device": {"windows": win14, "one_device_seconds": one14["seconds"],
                                        "cli": mesh14, "card": gpu}}))
 
+    # ---- phase 15: the kernels against the CPU oracle ----------------------
+    # one oracle film per scene (cpuref, path by path on the CPU), each
+    # engine's film on the card held to it by the gate's own comparison;
+    # the gate's view (r 2.0) shows the statue to no primary ray at 8x8,
+    # the statue views do (SSS, mirror; the DIR_REFRACT march)
+    engine_kernels = {"mega": ("mega_render",), "pool": pool_names, "scan": ("trace_segments",)}
+    ds15r = demo.jade_scene(n_buddha_tris=ORACLE_REFRACT_TRIS, env_shape=(16, 32))
+    ds15r.objects[0] = dataclasses.replace(ds15r.objects[0], material=dataclasses.replace(
+        ds15r.objects[0].material, refract_mode=material.DIR_REFRACT, refract_index=1.5,
+        refract_rate=(0.9, 0.9, 0.9)))
+    rmse_gate.statue_view(ds15r.camera)
+    gate15 = {}
+    for scene15, ds15, cfg15, engines15 in (
+            ("jade", rmse_gate.gate_scene(ORACLE_TRIS),
+             RenderConfig(width=8, height=8, spp=64, max_depth=4), ("mega", "pool", "scan")),
+            ("statue", rmse_gate.gate_scene(ORACLE_TRIS, statue=True),
+             RenderConfig(width=8, height=8, spp=16, max_depth=4), ("mega", "pool", "scan")),
+            ("dir_refract", ds15r,
+             RenderConfig(width=8, height=8, spp=16, max_depth=3, max_refract_bounces=8),
+             ("mega", "pool"))):
+        sd15c = assemble(ds15.objects, ds15.env_map, device="cpu")
+        sd15 = assemble(ds15.objects, ds15.env_map, device=dev)
+        t0 = time.perf_counter()
+        ref15 = oracle.render_radiance(sd15c, ds15.camera, cfg15)
+        oracle_s = time.perf_counter() - t0
+        rays15 = {}
+        for engine in engines15:
+            kernels.reset_launches()
+            st15 = {}
+            got15 = trender.render_film(sd15, ds15.camera, cfg15.replace(engine=engine),
+                                        stats=st15).mean().cpu()
+            launched15 = dict(kernels.LAUNCHES)
+            if min(launched15[k] for k in engine_kernels[engine]) < 1:
+                raise AssertionError(f"phase 15 {scene15} {engine}: launches {launched15}")
+            r15, m15 = rmse_gate.check_rmse(got15, ref15, f"phase 15 {scene15} {engine}")
+            rays15[engine] = st15["rays"]
+            gate15[scene15, engine] = {"rmse_rel": r15, "max_rel": m15, "rays": st15["rays"],
+                                       "oracle_s": oracle_s}
+        if len(set(rays15.values())) != 1:
+            raise AssertionError(f"phase 15 {scene15}: useful rays differ {rays15}")
+        log(f"phase 15 oracle gate, {scene15} ({sd15.n_triangles} tris) {cfg15.width}x"
+            f"{cfg15.height} {cfg15.spp}spp depth {cfg15.max_depth}: " + "; ".join(
+                f"{e} relative RMSE {gate15[scene15, e]['rmse_rel']:.4e}, max rel err "
+                f"{gate15[scene15, e]['max_rel']:.4e}" for e in engines15)
+            + f" (gate < {rmse_gate.GATE:g}); useful rays equal ({rays15[engines15[0]]:.0f}); "
+            f"oracle {oracle_s:.3f} s on the CPU [{gpu}]")
+
+    # ---- phase 16: the bench at its defaults, mega and pool ---------------
+    bench16 = {}
+    for engine in ("mega", "pool"):
+        cmd = [sys.executable, "-m", "jaderaytracerendering_tpu_torch.bench", "--engine", engine]
+        try:
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                                 timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"phase 16 bench {engine}: no result in {BENCH_TIMEOUT_S} s "
+                                 f"(stderr: {(e.stderr or b'')[-2000:]!r})") from None
+        if res.returncode != 0:
+            raise AssertionError(f"phase 16 bench {engine}: exit code {res.returncode}\n"
+                                 f"{res.stderr[-4000:]}")
+        out16 = res.stdout.strip().splitlines()
+        line16 = json.loads(out16[-1])
+        reps16 = [ln for ln in out16 if ln.startswith("rep ")]
+        if line16["reps"] != BENCH_REPS or len(reps16) != BENCH_REPS:
+            raise AssertionError(f"phase 16 bench {engine}: {len(reps16)} rep lines, reps "
+                                 f"{line16['reps']}")
+        if not line16["value"] > 0 or line16["engine"] != engine:
+            raise AssertionError(f"phase 16 bench {engine}: {line16}")
+        if min(line16["launches"].get(k, 0) for k in engine_kernels[engine]) < 1:
+            raise AssertionError(f"phase 16 bench {engine}: launches {line16['launches']}")
+        bench16[engine] = line16
+        print(json.dumps(line16), flush=True)
+        log(f"phase 16 bench --engine {engine} (defaults, a fresh process): "
+            f"{line16['value']:.3f} Mrays/s sustained over {line16['reps']} renders, single "
+            f"{line16['single_ms']['min']:.3f} / {line16['single_ms']['median']:.3f} / "
+            f"{line16['single_ms']['max']:.3f} ms (min / median / max), "
+            f"{line16['rays']:.0f} useful rays a render; " + "; ".join(
+                ln for ln in out16 if ln.startswith("scene:")) + f" [{gpu}]")
+    if bench16["mega"]["rays"] != bench16["pool"]["rays"]:
+        raise AssertionError(f"phase 16: useful rays mega {bench16['mega']['rays']} vs pool "
+                             f"{bench16['pool']['rays']}")
+
     lib_note = "no single PyTorch call computes this function"
     main_shape = (f"jade 20k, 1024x1024 16 spp depth 16, {it8['_state']['lanes']} lanes "
                   f"after {it8['_state']['iterations']} iterations")
@@ -1272,6 +1368,9 @@ def main() -> None:
         "main_path_bound_ms": bound4[0], "main_path_bound_by": bound4[1],
         "main_path_max_abs_err": err4,
         "refract_ms": ms10, "refract_max_abs_err": err10,
+        "oracle_rmse_rel": gate15["jade", "mega"]["rmse_rel"],
+        "oracle_rmse_rel_statue": gate15["statue", "mega"]["rmse_rel"],
+        "oracle_rmse_rel_refract": gate15["dir_refract", "mega"]["rmse_rel"],
         "registers": {k: v for k, v in regs.items() if k.startswith("mega_render")},
     }]
     for name, replaces in (
@@ -1293,6 +1392,11 @@ def main() -> None:
                                   "a call from Python; main_path_*: over one pool render "
                                   "under torch.profiler)"})
     for k in kernels_out[1:]:
+        k["oracle_rmse_rel"] = gate15["jade", "pool"]["rmse_rel"]
+        k["oracle_rmse_rel_statue"] = gate15["statue", "pool"]["rmse_rel"]
+        k["oracle_rmse_rel_refract"] = gate15["dir_refract", "pool"]["rmse_rel"]
+        if k["name"] == "trace_segments":
+            k["oracle_rmse_rel_scan"] = gate15["jade", "scan"]["rmse_rel"]
         if k["name"] in ("front_bounce", "resolve_bounce"):
             k["refract_max_abs_err"] = it10[k["name"]]["max_abs_err"]
             k["refract_ms"] = it10[k["name"]]["ms"]

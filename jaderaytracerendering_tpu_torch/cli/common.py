@@ -122,3 +122,14 @@ def select_device(args):
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to render on the CPU)")
     return torch.device(args.device)
+
+
+def card() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]

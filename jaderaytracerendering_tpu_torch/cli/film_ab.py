@@ -30,6 +30,8 @@ import tempfile
 
 import numpy as np
 
+from . import common
+
 THIS_ROOT = pathlib.Path(__file__).resolve().parents[2]
 FILMS = {
     "mega-main": [],
@@ -58,9 +60,7 @@ def main(argv=None):
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = common.card()
     trees = {"other": pathlib.Path(args.other).resolve(), "this": THIS_ROOT}
     out = {"card": card, "other": str(trees["other"]), "films": {}}
     with tempfile.TemporaryDirectory() as tmp:

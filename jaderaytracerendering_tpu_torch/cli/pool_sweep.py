@@ -29,8 +29,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
+
+from . import common
 
 
 def _render_s(render, sd, cam, cfg, stats=None) -> float:
@@ -224,9 +225,7 @@ def main(argv=None):
     from ..scene.scene import assemble
     from ..utils.config import RenderConfig
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = common.card()
     ds = demo.jade_scene(n_buddha_tris=20_000)
     sd = assemble(ds.objects, ds.env_map, device="cuda")
     cfg = RenderConfig()

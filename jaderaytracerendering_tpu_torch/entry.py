@@ -3,14 +3,20 @@
 - ``entry()`` -> (fn, example_args): one scan render step on the tiny
   jade scene, on the card (``device="cpu"`` for the CPU).
 - ``dryrun_multichip(n)``: the three engines over an (n/2, 2) mesh of n
-  ranks (parallel/sharding.py), each rank a process on this node: on n
-  cards when there are n, else on the CPU with gloo. Asserts finite films
-  with the right sample count.
+  ranks (parallel/sharding.py), each rank a process on this node, on the
+  cards (ranks share them over gloo when they outnumber them;
+  ``device="cpu"`` for the CPU). Asserts finite films with the right
+  sample count.
 
-    python -m jaderaytracerendering_tpu_torch.entry multichip 4
+    python -m jaderaytracerendering_tpu_torch.entry [--device cpu]
+    python -m jaderaytracerendering_tpu_torch.entry multichip 4 [--device cpu]
+
+A missing card is an error, never a quiet fall back to the CPU.
 """
 
 from __future__ import annotations
+
+import argparse
 
 import torch
 
@@ -62,12 +68,16 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
             "backend": torch.distributed.get_backend(), "counts": counts}
 
 
-def dryrun_multichip(n_devices: int) -> list:
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> list:
     """Run the three engines over an (n/2, 2) mesh of ``n_devices`` ranks
-    on this node -> each rank's report."""
+    on this node -> each rank's report. Rank r renders on card
+    ``r % cards`` (``sharding.rank_device``), so ranks share the cards when
+    they outnumber them; ``device="cpu"`` runs them on the CPU."""
     from .parallel import sharding
 
-    device = "cuda" if torch.cuda.device_count() >= n_devices else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun_multichip: no CUDA device is available "
+                           "(pass device='cpu' to run the ranks on the CPU)")
     out = sharding.spawn_local("jaderaytracerendering_tpu_torch.entry:_dryrun_rank",
                                n_devices, (n_devices, device), device=device)
     print(f"dryrun_multichip OK: {n_devices} ranks, mesh {out[0]['mesh']}, "
@@ -75,12 +85,24 @@ def dryrun_multichip(n_devices: int) -> list:
     return out
 
 
-if __name__ == "__main__":
-    import sys
+def main(argv=None) -> None:
+    from .cli import common
 
-    if len(sys.argv) > 1 and sys.argv[1] == "multichip":
-        dryrun_multichip(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+    ap = argparse.ArgumentParser(prog="python -m jaderaytracerendering_tpu_torch.entry")
+    ap.add_argument("command", nargs="?", choices=["multichip"],
+                    help="run dryrun_multichip instead of one render step")
+    ap.add_argument("n", nargs="?", type=int, default=2, help="multichip: ranks")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where to render (default cuda)")
+    args = ap.parse_args(argv)
+    device = common.select_device(args)
+    if args.command == "multichip":
+        dryrun_multichip(args.n, device.type)
     else:
-        fn, args = entry("cuda" if torch.cuda.is_available() else "cpu")
-        rad, rays = fn(*args)
+        fn, ex = entry(device.type)
+        rad, rays = fn(*ex)
         print("entry OK:", tuple(rad.shape), float(rad.mean()), float(rays.sum()))
+
+
+if __name__ == "__main__":
+    main()

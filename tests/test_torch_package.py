@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -41,6 +42,7 @@ print("JAX_LOADED", "jax" in sys.modules, "jaderaytracerendering_tpu" in sys.mod
 
 def test_cli_refuses_missing_cuda(tmp_path):
     code = """
+import pytest
 import torch
 torch.cuda.is_available = lambda: False
 from jaderaytracerendering_tpu_torch.cli import render
@@ -62,6 +64,7 @@ def test_preview_cli_refuses_missing_cuda(tmp_path):
     """The preview CLI runs on the card unless --device cpu asks for the
     CPU; a missing GPU is an error, not a fall back."""
     code = """
+import pytest
 import torch
 torch.cuda.is_available = lambda: False
 from jaderaytracerendering_tpu_torch.cli import preview
@@ -71,3 +74,36 @@ preview.main(["--scene", "tiny", "--width", "4", "--height", "4", "--frames", "1
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert not list(tmp_path.glob("*.bmp"))
+
+
+@pytest.mark.parametrize("module", ["entry", "bench", "cli.rmse_gate", "cli.convergence"])
+def test_entry_points_refuse_missing_cuda(module, tmp_path):
+    """``python -m`` of each entry point runs on the card unless ``--device
+    cpu`` asks for the CPU: without a card it exits non-zero, having
+    written nothing."""
+    name = f"jaderaytracerendering_tpu_torch.{module}"
+    code = f"""
+import runpy, sys, torch
+torch.cuda.is_available = lambda: False
+sys.argv = [{name!r}]
+runpy.run_module({name!r}, run_name="__main__")
+"""
+    res = _run(code, tmp_path)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_dryrun_multichip_refuses_missing_cuda(tmp_path):
+    """``dryrun_multichip(n)`` runs its ranks on the cards unless asked for
+    the CPU; no card is an error before any rank starts."""
+    code = """
+import pytest
+import torch
+torch.cuda.is_available = lambda: False
+from jaderaytracerendering_tpu_torch import entry
+entry.dryrun_multichip(2)
+"""
+    res = _run(code, tmp_path)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and "device='cpu'" in res.stderr

@@ -4,7 +4,7 @@ the JAX package: ``core/rng.wang_hash`` and ``glsl_seed``, the row-vector
 ``ops/intersect.ray_triangle(method="shadow")``, ``scene/objloader.write_obj``,
 ``integrator/render.render_image``; and the port's ``utils/logging.py``
 (``RayCounter``, ``profiler_trace``, rank-tagged stage lines) and
-``entry.py`` (``entry``, ``dryrun_multichip(2)`` on the CPU).
+``entry.py`` (``entry``, ``dryrun_multichip(2, device="cpu")``).
 
 Tolerances: hashes, seeds, hit flags and OBJ bytes exact; rays and
 intersection t within 1e-6 (the same float32 operations in the same
@@ -174,7 +174,7 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_entry_and_dryrun_multichip_on_cpu(tmp_path):
-    """``entry()`` renders one step; ``dryrun_multichip(2)`` runs the three
+    """``entry()`` renders one step; ``dryrun_multichip(2, device="cpu")`` runs the three
     engines over a (1, 2) mesh of 2 gloo ranks on the CPU (a subprocess:
     the ranks are spawned processes)."""
     code = """
@@ -182,7 +182,7 @@ from jaderaytracerendering_tpu_torch import entry
 fn, args = entry.entry("cpu")
 rad, rays = fn(*args)
 assert rad.shape == (64, 3) and float(rays.sum()) > 0
-out = entry.dryrun_multichip(2)
+out = entry.dryrun_multichip(2, device="cpu")
 assert [r["rank"] for r in out] == [0, 1], out
 assert all(r["counts"] == {"scan": 4, "pool": 4, "mega": 4} and r["backend"] == "gloo"
            for r in out), out
