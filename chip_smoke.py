@@ -237,8 +237,7 @@ def traced(run, kernel: str, tries: int = 3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = run()
             torch.cuda.synchronize()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
-               for e in prof.events()):
+        if any(kernel in e.name for e in device_events(prof)):
             return out, prof
     raise AssertionError(f"the profiler saw no device event of {kernel!r} in {tries} traces")
 
@@ -277,12 +276,21 @@ def mega_tables() -> list:
     return [k for k in TABLES if k not in SOA_WALK] + list(WALK_TABLES)
 
 
+def device_events(prof) -> list:
+    """A profile's device events: kernels, copies and fills. The host's
+    profiler ranges (the program's spans among them) come back as
+    device-side annotations too, flagged ``is_user_annotation``: they are
+    no device work and are left out."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_idle_share(prof, kernel: str, first: int) -> tuple[float, float]:
     """From a torch.profiler trace: the window from the start of launch
     ``first`` (counting from 0) of ``kernel`` (a substring of its name) to
     the start of its last launch, and the share of it in which the device
     ran nothing (no kernel, copy or fill) -> (idle share, window ms)."""
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     starts = sorted(e.time_range.start for e in dev if kernel in e.name)
     if len(starts) <= first + 1:
         raise AssertionError(f"the profiler saw {len(starts)} launches of {kernel!r}")
@@ -300,7 +308,7 @@ def device_kernels(prof, kernel: str, first: int) -> dict:
     """From a torch.profiler trace: {name: launches} of every device kernel
     (copies left out) that starts in the window of ``device_idle_share``,
     from launch ``first`` of ``kernel`` to its last launch."""
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     starts = sorted(e.time_range.start for e in dev if kernel in e.name)
     out = {}
     for e in dev:

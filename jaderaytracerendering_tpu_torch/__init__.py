@@ -25,7 +25,7 @@ The JAX package is the reference; this package never imports ``jax``.
                  tiles x samples on a mesh of ranks (``sharding``).
 - ``post``       ACES/Reinhard, gamma, BMP/PNG.
 - ``utils``      ``RenderConfig`` and its parity presets; stage logging,
-                 ray counters, profiler capture.
+                 and the spans and counters recorded under torch.profiler.
 - ``cli``        ``python -m jaderaytracerendering_tpu_torch.cli.render``
                  (``--mesh TILExSPP`` over ranks), ``cli.preview``, and
                  the measurement tools ``cli.pool_sweep``, ``cli.film_ab``.

@@ -65,7 +65,10 @@ def trace_render(render, sd, cam, cfg) -> dict:
         wall = _render_s(render, sd, cam, cfg)
     kernels, launches = {}, {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the host's profiler ranges (the program's spans) come back as
+        # device-side annotations too: they are no device work
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
             launches[e.key] = launches.get(e.key, 0) + e.count
     busy = sum(kernels.values())
@@ -189,6 +192,7 @@ def _preview_frames(sd, cam, frames, card) -> dict:
             torch.cuda.synchronize()
         seen = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
                 and "preview_render_kernel" in e.key]
         if not seen:
             raise RuntimeError("pool_sweep: the trace holds no preview kernel launch")

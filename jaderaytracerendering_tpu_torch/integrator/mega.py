@@ -21,14 +21,18 @@ from ..core import camera as camera_mod
 from ..core.film import Film
 from ..ops import mega as megak
 from ..utils.config import RenderConfig
+from ..utils.logging import span
 
 
 def host_camera(cam):
     """(eye, rot) on the host: a kernel takes the camera by value in its
     launch arguments, so host tensors spare each launch a copy back from
     the card, which would wait for the work queued before it. (A scene on
-    the CPU runs the plain versions, which take them as they are.)"""
-    return camera_mod.camera_tensors(cam, "cpu")
+    the CPU runs the plain versions, which take them as they are.) The
+    span ``integrator.mega.host_camera`` names the device's idle gaps it
+    leaves in a preview frame."""
+    with span("integrator.mega.host_camera"):
+        return camera_mod.camera_tensors(cam, "cpu")
 
 
 def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,

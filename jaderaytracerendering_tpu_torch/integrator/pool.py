@@ -23,7 +23,7 @@ their plain versions (``run_pool(st, PLAIN)`` runs the plain versions on
 any device). Every draw is keyed by (pixel, sample, bounce, site), so a pool
 render equals the megakernel's and the scan engine's sample for sample;
 only the order of the sums within a pixel differs. The host reads the
-finished-sample counter once per iteration.
+queue's counters once per iteration.
 
 A queue runs over a pixel window (``render_window_pool``): the whole
 film, or a tile shard of a multi-device render (parallel/sharding.py),
@@ -41,8 +41,9 @@ from typing import Optional
 from ..core import camera as camera_mod
 from ..core.film import Film
 from ..ops import bounce_front, bounce_resolve, spawn_front, trace
-from ..ops.lanes import C_DONE, C_RAYS, PoolState
+from ..ops.lanes import C_DONE, C_NEXT, C_RAYS, PoolState
 from ..utils.config import RenderConfig
+from ..utils.logging import count, span
 
 # lanes of the pool when the caller gives none (capped at npix * spp):
 # the fastest of 2^18 .. 2^21 at the main path on the H100 (PERF.md,
@@ -60,18 +61,31 @@ PLAIN = (spawn_front.spawn_primary_plain, bounce_front.front_bounce_plain,
 
 def run_pool(st: PoolState, steps=KERNELS, max_iters: int = MAX_ITERS) -> int:
     """Run the pool loop on ``st`` until its queue has finished (or
-    ``max_iters``) -> loop iterations."""
+    ``max_iters``) -> loop iterations.
+
+    Under a profiler (utils/logging.py) each iteration is the span
+    ``integrator.pool.iteration`` and its read of ``st.cnt``, which waits
+    for the device, the child span ``integrator.pool.sync``: the iteration
+    less its sync is the host's launch path (``pool_host_us``). The same
+    read gives the counters ``pool.live_lanes`` (the samples taken and not
+    finished after the spawn rounds: lanes that carry a live path) and
+    ``pool.lane_slots`` (M), whose ratio is ``pool_lane_use_pct``."""
     spawn, front, trace_fn, resolve = steps
     it = 0
     while it < max_iters:
-        if it:  # no lane is active before the first spawn
-            o, d, x = front(st)
-            bt, bi = trace_fn(st.sd, o, d, x, st.sd.n_emit, st.cfg.bvh_stack_size)
-            resolve(st, bt, bi)
-        for _ in range(max(1, st.cfg.spawn_rounds)):
-            spawn(st)
-        it += 1
-        if int(st.cnt[C_DONE]) >= st.total:
+        with span("integrator.pool.iteration"):
+            if it:  # no lane is active before the first spawn
+                o, d, x = front(st)
+                bt, bi = trace_fn(st.sd, o, d, x, st.sd.n_emit, st.cfg.bvh_stack_size)
+                resolve(st, bt, bi)
+            for _ in range(max(1, st.cfg.spawn_rounds)):
+                spawn(st)
+            it += 1
+            with span("integrator.pool.sync"):
+                cnt = st.cnt.tolist()
+            count("pool.live_lanes", min(cnt[C_NEXT], st.total) - cnt[C_DONE])
+            count("pool.lane_slots", st.m)
+        if cnt[C_DONE] >= st.total:
             break
     return it
 

@@ -24,6 +24,7 @@ from ..core.film import Film
 from ..ops import mega as megak
 from ..ops import postfx
 from ..utils.config import RenderConfig, check_traversal
+from ..utils.logging import span
 from . import wavefront
 
 # lanes (pixels x samples) per plain-integrator call; bounds the memory
@@ -71,7 +72,17 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
 
     ``stats``, when given, receives ``rays``: the useful rays traced (and
     ``iterations`` from the pool engine); the preview integrator counts
-    none."""
+    none. Under a profiler the call is the span
+    ``integrator.render.render_film`` (utils/logging.py), a request: the
+    parent of the pool's iteration spans, and the request whose number
+    the image's tone map carries."""
+    with span("integrator.render.render_film", request=True):
+        return _render_film(sd, cam, cfg, film, progress, stats)
+
+
+def _render_film(sd, cam, cfg: RenderConfig, film: Optional[Film],
+                 progress: Optional[Callable[[int, int], None]],
+                 stats: Optional[dict]) -> Film:
     check_traversal(cfg.traversal)
     if cfg.integrator == "preview":
         film = render_film_preview(sd, cam, cfg, film)
@@ -216,7 +227,19 @@ def render_film_preview(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     With ``display`` returns ``(film, u8 frame)``, the frame from
     ``display_frame``. With ``cfg.preview_bands > 1``, a ``frame_idx``
     and ``display``, renders one banded frame
-    (``render_film_preview_banded``)."""
+    (``render_film_preview_banded``).
+
+    Under a profiler each call is the span
+    ``integrator.render.render_film_preview`` (utils/logging.py), one a
+    frame: the frame's host path, which ``preview_host_ms`` reads; its
+    children are the host camera, the preview kernel's wrapper and the
+    postfx wrapper."""
+    with span("integrator.render.render_film_preview", request=True):
+        return _render_film_preview(sd, cam, cfg, film, display, frame_idx)
+
+
+def _render_film_preview(sd, cam, cfg: RenderConfig, film: Optional[Film], display: bool,
+                         frame_idx: Optional[int]):
     check_traversal(cfg.traversal)
     if cfg.preview_bands > 1 and frame_idx is not None and display:
         return render_film_preview_banded(sd, cam, cfg, film, frame_idx)

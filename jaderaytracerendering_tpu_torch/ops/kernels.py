@@ -19,6 +19,7 @@ import functools
 import torch
 
 from ..scene.scene import PACKED, TABLES
+from ..utils import logging
 from . import build
 from .intersect import INF  # noqa: F401  (a miss's t, as the kernels write it)
 
@@ -30,8 +31,11 @@ MAX_STACK = 128  # the largest cfg.bvh_stack_size (entries) the kernels accept
 
 
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and clear the spans and counters of
+    utils/logging.py: one reset of every counter the program keeps."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    logging.reset()
 
 
 class SceneArgs(ctypes.Structure):

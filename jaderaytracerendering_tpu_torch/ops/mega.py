@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..utils.logging import span
 from . import kernels
 from .kernels import LAUNCHES
 
@@ -95,18 +96,22 @@ def render_preview_mega(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_ba
     pix_offset + len(band)): adds the radiance sums of ``spp`` samples from
     ``sample_base`` into ``band`` [n_px, 3] f32 (the window's rows of a
     film) in place and returns it. ``eye`` [3] and ``rot`` [4, 4] are the
-    camera."""
-    n_px = _window(cfg, pix_offset, int(band.shape[0]))
-    if sd.device.type == "cpu":
-        return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, band, pix_offset)
-    kernels.check_tensor("band", band, torch.float32, (n_px, 3), sd.device)
-    if spp <= 0 or n_px == 0:
+    camera. Under a profiler the call is the span
+    ``ops.mega.render_preview_mega`` (utils/logging.py): the argument
+    structures and the launch, a child of a preview frame's span."""
+    with span("ops.mega.render_preview_mega"):
+        n_px = _window(cfg, pix_offset, int(band.shape[0]))
+        if sd.device.type == "cpu":
+            return render_preview_mega_plain(sd, eye, rot, cfg, sample_base, spp, band,
+                                             pix_offset)
+        kernels.check_tensor("band", band, torch.float32, (n_px, 3), sd.device)
+        if spp <= 0 or n_px == 0:
+            return band
+        s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
+        r = kernels.render_args(eye, rot, cfg, sample_base, spp)
+        rc = kernels.library().preview_render(ctypes.byref(s), ctypes.byref(r),
+                                              int(pix_offset), n_px, int(cfg.preview_bounces),
+                                              kernels.ptr(band), kernels.stream(sd.device))
+        kernels.check_rc(rc, "render_preview_mega")
+        LAUNCHES["render_preview_mega"] += 1
         return band
-    s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
-    r = kernels.render_args(eye, rot, cfg, sample_base, spp)
-    rc = kernels.library().preview_render(ctypes.byref(s), ctypes.byref(r), int(pix_offset),
-                                          n_px, int(cfg.preview_bounces), kernels.ptr(band),
-                                          kernels.stream(sd.device))
-    kernels.check_rc(rc, "render_preview_mega")
-    LAUNCHES["render_preview_mega"] += 1
-    return band

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core.vecmath import div
+from ..utils import logging
 from . import kernels
 from .kernels import LAUNCHES
 
@@ -77,16 +78,19 @@ def postfx(accum: torch.Tensor, count, mode: str = "aces", g: float = 2.2,
            count_hi=None) -> torch.Tensor:
     """Radiance sums [H, W, 3] f32 + sample count(s) -> display u8 [H, W,
     3] (see the module docstring). CUDA tensors launch the kernel; CPU
-    tensors run the plain version."""
-    if accum.device.type == "cpu":
-        return postfx_plain(accum, count, mode, g, limit, flip, span, out, split, count_hi)
-    h, w, p0, split, p1, out = _prepare(accum, mode, span, out, split, count_hi)
-    kernels.check_tensor("accum", accum, torch.float32, (h, w, 3), accum.device)
-    kernels.check_tensor("out", out, torch.uint8, (h, w, 3), accum.device)
-    rc = kernels.library().postfx(
-        kernels.ptr(accum), kernels.ptr(out), w, h, p0, split, p1, float(count),
-        float(count if count_hi is None else count_hi), MODES[mode], 1.0 / g, float(limit),
-        int(flip), kernels.stream(accum.device))
-    kernels.check_rc(rc, "postfx")
-    LAUNCHES["postfx"] += 1
-    return out
+    tensors run the plain version. Under a profiler the call is the span
+    ``ops.postfx.postfx`` (utils/logging.py), a child of a preview frame's
+    span."""
+    with logging.span("ops.postfx.postfx"):
+        if accum.device.type == "cpu":
+            return postfx_plain(accum, count, mode, g, limit, flip, span, out, split, count_hi)
+        h, w, p0, split, p1, out = _prepare(accum, mode, span, out, split, count_hi)
+        kernels.check_tensor("accum", accum, torch.float32, (h, w, 3), accum.device)
+        kernels.check_tensor("out", out, torch.uint8, (h, w, 3), accum.device)
+        rc = kernels.library().postfx(
+            kernels.ptr(accum), kernels.ptr(out), w, h, p0, split, p1, float(count),
+            float(count if count_hi is None else count_hi), MODES[mode], 1.0 / g,
+            float(limit), int(flip), kernels.stream(accum.device))
+        kernels.check_rc(rc, "postfx")
+        LAUNCHES["postfx"] += 1
+        return out

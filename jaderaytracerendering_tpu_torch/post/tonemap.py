@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.logging import span
+
 
 def aces(color: np.ndarray) -> np.ndarray:
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
@@ -44,5 +46,8 @@ def quantize_u8(color: np.ndarray) -> np.ndarray:
 
 
 def finalize(radiance: np.ndarray, mode: str = "aces", g: float = 2.2) -> np.ndarray:
-    """Mean radiance [H, W, 3] f32 -> display u8 RGB [H, W, 3]."""
-    return quantize_u8(gamma(tonemap(np.asarray(radiance, np.float32), mode), g))
+    """Mean radiance [H, W, 3] f32 -> display u8 RGB [H, W, 3]. Under a
+    profiler the call is the span ``post.tonemap.finalize``
+    (utils/logging.py), which ``tonemap_ms`` reads."""
+    with span("post.tonemap.finalize"):
+        return quantize_u8(gamma(tonemap(np.asarray(radiance, np.float32), mode), g))

@@ -3,7 +3,8 @@ the JAX package: ``core/rng.wang_hash`` and ``glsl_seed``, the row-vector
 ``core/camera.generate_rays``, the shadow-projection intersector
 ``ops/intersect.ray_triangle(method="shadow")``, ``scene/objloader.write_obj``,
 ``integrator/render.render_image``; and the port's ``utils/logging.py``
-(``RayCounter``, ``profiler_trace``, rank-tagged stage lines) and
+(``timed`` and rank-tagged stage lines; its spans in
+tests/test_torch_tracing.py) and
 ``entry.py`` (``entry``, ``dryrun_multichip(2, device="cpu")``).
 
 Tolerances: hashes, seeds, hit flags and OBJ bytes exact; rays and
@@ -13,7 +14,6 @@ the two packages' films agree to libm ulps, which can move a value across
 a quantisation step).
 """
 
-import json
 import os
 import pathlib
 import subprocess
@@ -151,26 +151,12 @@ def test_render_image_matches_jax():
 
 
 def test_ray_counter_and_timed(caplog):
-    c = tlog.RayCounter()
-    assert c.mrays_per_sec == 0.0
-    c.add(3_000_000, 1.5)
-    c.add(1_000_000, 0.5)
-    assert c.rays == 4_000_000 and c.mrays_per_sec == pytest.approx(2.0)
     with caplog.at_level("INFO", logger="jaderaytracerendering_tpu_torch"):
         with tlog.timed("a step"):
             pass
         tlog.stage("a stage")
     assert any("a step took" in r.getMessage() for r in caplog.records)
     assert any(r.getMessage() == "a stage" for r in caplog.records)
-
-
-def test_profiler_trace_writes_a_chrome_trace(tmp_path):
-    with tlog.profiler_trace(None):  # nothing without a directory
-        pass
-    with tlog.profiler_trace(str(tmp_path / "prof")):
-        torch.ones(64).cumsum(0)
-    trace = json.loads((tmp_path / "prof" / "trace_rank0.json").read_text())
-    assert trace["traceEvents"]
 
 
 def test_entry_and_dryrun_multichip_on_cpu(tmp_path):
