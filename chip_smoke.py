@@ -66,7 +66,8 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      random pixels, the last frame shown and the banded display of each
      frame of a rotation (one postfx launch over two spans, two counts)
      against the plain postfx band by band (0 u8 steps), and the written image
-     checked; kernel ms per banded frame, its bound (the walks of a random
+     checked (one more postfx launch: the saved image is finished on the
+     card); kernel ms per banded frame, its bound (the walks of a random
      subset of the band's pixels counted and scaled) and postfx ms; then 64
      frames for the steady frames per second, and 64 more under
      torch.profiler for the device's idle share in the steady frames and
@@ -1085,8 +1086,9 @@ def main() -> None:
         film13, info13 = cli_preview.main(["--frames", str(PREVIEW_MAIN_FRAMES), "--out", out13])
         launches13 = dict(kernels.LAUNCHES)
         size13 = os.path.getsize(out13)
+    # one postfx launch a frame, and one for the image --out saves (finished on the card)
     if (launches13["render_preview_mega"] != PREVIEW_MAIN_FRAMES
-            or launches13["postfx"] != PREVIEW_MAIN_FRAMES or launches13["mega_render"]):
+            or launches13["postfx"] != PREVIEW_MAIN_FRAMES + 1 or launches13["mega_render"]):
         raise AssertionError(f"preview main path launches {launches13}")
     if size13 != want or film13.count != PREVIEW_MAIN_FRAMES // 4:
         raise AssertionError(f"preview main path: BMP {size13} bytes (want {want}), film "

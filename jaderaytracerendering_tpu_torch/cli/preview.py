@@ -131,8 +131,8 @@ def main(argv=None):
     t_last = t_start = time.perf_counter()
 
     def save(path, the_film):
-        rad = the_film.mean().cpu().numpy()[::-1]  # film row 0 is the bottom row
-        image_io.save(path, tonemap.finalize(rad, cfg.tonemap))
+        # film row 0 is the bottom row; a CUDA film is finished on the card
+        image_io.save(path, tonemap.finalize(the_film.mean(), cfg.tonemap, flip=True))
         common.stage(f"wrote {path}")
 
     def step():

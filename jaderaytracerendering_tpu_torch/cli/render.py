@@ -161,8 +161,8 @@ def main(argv=None):
         if args.save_film:
             film.save(args.save_film)
             common.stage(f"film checkpoint -> {args.save_film}")
-        rad = film.mean().cpu().numpy()[::-1]  # film row 0 is the bottom row
-        image_io.save(args.out, tonemap.finalize(rad, cfg.tonemap))
+        # film row 0 is the bottom row; a CUDA film is finished on the card
+        image_io.save(args.out, tonemap.finalize(film.mean(), cfg.tonemap, flip=True))
         common.stage(f"wrote {args.out}")
     return film, stats
 

@@ -130,11 +130,12 @@ def render_image(sd, cam, cfg: RenderConfig) -> np.ndarray:
     """The whole pipeline -> display u8 RGB [H, W, 3], row 0 at the top
     (the film's row 0 is the bottom of the scene, PathTrace.cu:1431), as
     the render CLI writes it: ``render_film``, the film's mean, then
-    ``post/tonemap.finalize``."""
+    ``post/tonemap.finalize`` where the film is (on the card for a CUDA
+    film)."""
     from ..post import tonemap
 
     film = render_film(sd, cam, cfg)
-    return tonemap.finalize(film.mean().cpu().numpy()[::-1], cfg.tonemap)
+    return tonemap.finalize(film.mean(), cfg.tonemap, flip=True)
 
 
 def display_frame(accum: torch.Tensor, count, mode: str) -> torch.Tensor:

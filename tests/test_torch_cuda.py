@@ -15,13 +15,18 @@ pixel atol = 1e-4 * max, rtol = 1e-3 (they match the plain versions to a
 few ulps; the pool's film adds are float atomics, so its sums within a
 pixel change order); lane integers and counters of one pool step exact,
 its floats within 1e-5 of their max; display u8 exact (postfx built with
---fmad=false, powf as the plain version's)."""
+--fmad=false, powf as the plain version's); ``post/tonemap.finalize`` on
+the card against its NumPy path (a CPU tensor's) byte for byte but where
+the card's ``powf`` and NumPy's ``pow`` round a value x255 that lies
+within a few ulps of a whole number to either side (one level apart,
+~1 in 10^6 channels of an HDR film)."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from jaderaytracerendering_tpu_torch.core import camera as camera_mod
 from jaderaytracerendering_tpu_torch.integrator import pool as tpool
@@ -31,7 +36,9 @@ from jaderaytracerendering_tpu_torch.ops import (bounce_front, bounce_resolve, k
                                                  mega as megak, postfx, spawn_front, trace)
 from jaderaytracerendering_tpu_torch.ops.lanes import (C_RAYS, F_DIR, F_L, F_LE0, F_SRC, F_T,
                                                        PoolState)
+from jaderaytracerendering_tpu_torch.post import tonemap as ttm
 from jaderaytracerendering_tpu_torch.scene.scene import assemble
+from jaderaytracerendering_tpu_torch.utils import logging as tlog
 from jaderaytracerendering_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
@@ -447,6 +454,98 @@ def test_banded_display_kernel_matches_plain(jade_cuda):
             postfx.postfx_plain(accum, n, "aces", flip=True,
                                 span=(b * band_px, (b + 1) * band_px), out=p)
         assert torch.equal(k, p)
+
+
+@pytest.fixture(scope="module")
+def mean_film(jade_cuda):
+    """A rendered 1024^2 film's mean on the card (HDR: the light and the
+    sky), and a ragged 7 x 1021 one with the extremes, on the card."""
+    ds, sd = jade_cuda
+    film = trender.render_film(sd, ds.camera, RenderConfig(spp=4, max_depth=8))
+    g = np.random.default_rng(6)
+    ragged = (g.gamma(0.6, 2.0, (7, 1021, 3)) * g.choice([0.05, 1.0, 30.0], (7, 1021, 1)))
+    ragged = ragged.astype(np.float32)
+    ragged[0, :4] = [[0.0, 1e-8, 5000.0], [-1e-8, -0.5, -3e4], [1.0, 0.18, 1e6], [2.0, 7.3, 1e-4]]
+    return {"film": film.mean(), "ragged": torch.tensor(ragged, device="cuda")}
+
+
+def _equal_but_for_pow_rounding(got, want, mean, mode, g=2.2) -> int:
+    """``got`` equals ``want`` byte for byte but at channels whose value
+    x255 lies within 4 float32 ulps of a whole number (``mean``: the
+    radiance in the images' row order), where the card's ``powf`` and
+    NumPy's ``pow`` may round to either side: there one level apart.
+    Returns the number of such channels."""
+    diff = got.astype(np.int32) - want.astype(np.int32)
+    apart = diff != 0
+    if apart.any():
+        c = ttm.tonemap(np.asarray(mean, np.float32), mode)[apart].astype(np.float64)
+        x = np.maximum(c, 0.0) ** np.float64(np.float32(1.0 / g)) * 255.0
+        assert np.abs(diff[apart]).max() == 1
+        near = np.abs(x - np.round(x)) <= 4 * 2.0 ** -23 * x
+        assert near.all(), list(zip(x[~near][:4], want[apart][~near][:4], got[apart][~near][:4]))
+    return int(apart.sum())
+
+
+@pytest.mark.parametrize("which", ["film", "ragged"])
+@pytest.mark.parametrize("mode", ["aces", "reinhard", "none"])
+def test_finalize_on_card_equals_numpy(mean_film, which, mode):
+    """The card path, from the client's flipped host view and from the
+    CUDA film with ``flip``, gives the NumPy path's bytes but where the
+    two ``pow`` round a value apart (``_equal_but_for_pow_rounding``);
+    both card routes give the same bytes."""
+    mean = mean_film[which]
+    rad = mean.cpu().numpy()
+    want = ttm.finalize(torch.from_numpy(rad), mode, flip=True)  # a CPU tensor: NumPy
+    assert 0 < int((want > 0).sum()) and int((want == 255).sum()) > 0
+    kernels.reset_launches()
+    from_host = ttm.finalize(rad[::-1], mode)
+    from_card = ttm.finalize(mean, mode, flip=True)
+    assert kernels.LAUNCHES["postfx"] == 2
+    np.testing.assert_array_equal(from_host, from_card)
+    apart = _equal_but_for_pow_rounding(from_card, want, rad[::-1], mode)
+    assert apart <= 1e-5 * want.size, apart
+
+
+def test_finalize_on_card_returns_arrays_of_their_own(mean_film):
+    """Two calls in a row on one shape: the first image is its own array
+    and the second call leaves it as it was."""
+    mean = mean_film["film"]
+    for a, b in (((mean * 0.5).cpu().numpy()[::-1], mean.cpu().numpy()[::-1]),
+                 (mean * 0.5, mean)):
+        first = ttm.finalize(a)
+        kept = first.copy()
+        second = ttm.finalize(b)
+        assert not np.shares_memory(first, second)
+        np.testing.assert_array_equal(first, kept)
+        assert (first != second).any()
+
+
+def test_finalize_on_card_counts_one_launch_and_one_card_image(mean_film):
+    """Under the profiler each image finished on the card is one postfx
+    launch, one ``post.tonemap.card_images`` and one span."""
+    mean = mean_film["ragged"]
+    tlog.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        kernels.reset_launches()
+        for i, rad in enumerate((mean.cpu().numpy()[::-1], mean, mean.cpu().numpy())):
+            ttm.finalize(rad, flip=i == 1)
+            assert kernels.LAUNCHES["postfx"] == i + 1
+            assert tlog.counters()["post.tonemap.card_images"] == i + 1
+        names = [s.name for s in tlog.spans()]
+    tlog.reset()
+    assert names == ["post.tonemap.finalize", "ops.postfx.postfx"] * 3
+
+
+@pytest.mark.parametrize("shape", [(16, 3), (4, 5, 4), (2, 4, 5, 3)])
+def test_finalize_on_card_refuses_a_shape_not_hw3(jade_cuda, shape):
+    """A CUDA tensor, or a host array in a process with a card, whose shape
+    is not [H, W, 3] is refused by postfx, not finished in NumPy."""
+    rad = torch.rand(shape, device="cuda")
+    kernels.reset_launches()
+    for x in (rad, rad.cpu().numpy()):
+        with pytest.raises(ValueError):
+            ttm.finalize(x)
+    assert kernels.LAUNCHES["postfx"] == 0
 
 
 def test_native_jade_scene_renders_through_the_megakernel(jade_cuda):
