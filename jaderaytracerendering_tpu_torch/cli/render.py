@@ -76,9 +76,9 @@ def main(argv=None):
     """Run the CLI; returns (film, stats) with stats = {'seconds',
     'rays', 'device', 'bvh_builder', 'scene_build_s'} for callers that
     drive it in-process (with ``--mesh``, also 'backend', 'rank',
-    'rank_device', the film's all_reduce figures, 'film_sha256' and
-    'launches'; spawned
-    ranks' stats under 'ranks')."""
+    'rank_device', 'window_ms' (each rank's tile window), the film's
+    all_reduce figures, 'film_sha256' and 'launches'; spawned ranks' stats
+    under 'ranks')."""
     import sys
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -151,10 +151,12 @@ def main(argv=None):
         stats["rank_device"] = str(device)
         stats["film_sha256"] = hashlib.sha256(film.accum.cpu().numpy().tobytes()).hexdigest()
         stats["launches"] = dict(kernels.LAUNCHES)
+        win = stats["window_ms"]
         line += (f" ({device}); mesh {shape[0]}x{shape[1]} ({stats['backend']}): the whole mesh's "
-                 f"samples and rays; all_reduce {stats['allreduce_ms']:.3f} ms in "
-                 f"{stats['allreduce_calls']} calls ({stats['allreduce_bytes']} bytes); film "
-                 f"sha256 {stats['film_sha256'][:16]}")
+                 f"samples and rays; rank windows {', '.join(f'{w:.3f}' for w in win)} ms "
+                 f"(imbalance {sharding.tile_imbalance_pct(win):.1f}%); all_reduce "
+                 f"{stats['allreduce_ms']:.3f} ms in {stats['allreduce_calls']} calls "
+                 f"({stats['allreduce_bytes']} bytes); film sha256 {stats['film_sha256'][:16]}")
     common.stage(line)
 
     if mesh is None or dist.get_rank() == 0:

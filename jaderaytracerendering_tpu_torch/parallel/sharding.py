@@ -20,8 +20,17 @@ rank's **tile group** (its spp column), which adds exact zeros and so
 changes no bit. This works alike under NCCL and gloo: gloo has
 ``all_reduce`` for CUDA tensors but no ``all_gather``, and ranks that
 share a card cannot use NCCL, which refuses two ranks on one GPU. (When
-``stats`` are asked for, one more ``all_reduce`` of a float64 scalar sums
-the ranks' useful rays.)
+``stats`` are asked for, one more ``all_reduce`` of a float64 vector sums
+the ranks' useful rays and carries each rank's window time to every
+rank.)
+
+Under a profiler (``utils/logging.py``) each rank records the span
+``parallel.sharding.window`` around the render of its tile window and
+``parallel.sharding.all_reduce`` around each film ``all_reduce``, the
+wait for the group's slowest rank included; rank 0 counts
+``parallel.tile_us_max`` (the slowest rank's window, in us, each image),
+``parallel.tile_us_sum`` (every rank's) and ``parallel.tile_windows``
+(ranks x images).
 
 Inside a rank each pixel's samples are summed in ascending order, so a
 mesh without an spp axis renders the single-device film bit for bit;
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import importlib
 import json
 import multiprocessing.connection
@@ -55,6 +65,7 @@ import torch.distributed as dist
 
 from ..core import camera as camera_mod
 from ..core.film import Film
+from ..utils import logging
 from ..utils.config import RenderConfig, check_traversal
 
 AXES = ("tile", "spp")
@@ -113,14 +124,16 @@ def choose_backend(device: torch.device) -> str:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     local_device_ids=None, device: str = "cuda") -> bool:
+                     local_device_ids=None, device: str = "cuda",
+                     timeout: Optional[float] = None) -> bool:
     """Join the process group: ``dist.init_process_group`` with the
     backend ``choose_backend`` gives for this rank's device, which becomes
     the current CUDA device. ``coordinator_address``: an init method
     (``file://...``, ``tcp://host:port``) or ``host:port``; None reads the
-    environment as torchrun sets it (``env://``). Returns True if this call
-    initialised the group, False if one already existed (safe to call
-    more than once)."""
+    environment as torchrun sets it (``env://``). ``timeout``: seconds the
+    rendezvous and each collective may wait for the other ranks (None:
+    torch's default). Returns True if this call initialised the group,
+    False if one already existed (safe to call more than once)."""
     dev = rank_device(device, local_device_ids, process_id)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -132,10 +145,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
         method = coordinator_address
     else:
         method = f"tcp://{coordinator_address}"
+    extra = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(
         choose_backend(dev), init_method=method,
         world_size=-1 if num_processes is None else int(num_processes),
-        rank=-1 if process_id is None else int(process_id))
+        rank=-1 if process_id is None else int(process_id), **extra)
     return True
 
 
@@ -229,9 +243,9 @@ def make_multislice_mesh(tile: Optional[int] = None, spp_per_slice: int = 1,
 # ---- collectives -----------------------------------------------------------
 
 class _Clock:
-    """Time, calls and bytes of the film's all_reduce calls: CUDA events on
-    the card (read once, at the end), the host clock on the CPU. The time
-    includes waiting for the slowest rank of the group."""
+    """Time, calls and bytes of the spans it times (the film's all_reduce
+    calls, the render of the tile window): CUDA events on the card (read
+    once, at the end), the host clock on the CPU."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -241,7 +255,7 @@ class _Clock:
         self.bytes = 0
 
     @contextlib.contextmanager
-    def span(self, t: torch.Tensor):
+    def span(self, t: Optional[torch.Tensor] = None):
         if self.cuda:
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
@@ -253,7 +267,8 @@ class _Clock:
             yield
             self.host_s += time.perf_counter() - t0
         self.calls += 1
-        self.bytes += t.numel() * t.element_size()
+        if t is not None:
+            self.bytes += t.numel() * t.element_size()
 
     def ms(self) -> float:
         if self.cuda:
@@ -263,11 +278,16 @@ class _Clock:
 
 
 def _all_reduce(t: torch.Tensor, group, clock: Optional[_Clock] = None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (nothing for a group of one)."""
+    """Sum ``t`` over ``group`` in place (nothing for a group of one),
+    waiting for the sum (on the card: for the device's stream), so that the
+    time covers the wait for the group's slowest rank."""
     if group is None:
         return t
-    with (clock.span(t) if clock else contextlib.nullcontext()):
+    with logging.span("parallel.sharding.all_reduce"), \
+            (clock.span(t) if clock else contextlib.nullcontext()):
         dist.all_reduce(t, group=group)
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
     return t
 
 
@@ -287,20 +307,40 @@ def gather_film(local: torch.Tensor, mesh: Mesh, clock: Optional[_Clock] = None
     return _all_reduce(buf, mesh.tile_group, clock)
 
 
-def _finish_stats(stats: Optional[dict], rays: float, clock: _Clock,
+def _finish_stats(stats: Optional[dict], rays: float, clock: _Clock, window: _Clock,
                   device: torch.device) -> None:
-    """The mesh's useful rays (summed over every rank) and this rank's
-    all_reduce figures into ``stats``."""
+    """Into ``stats``: the mesh's useful rays (summed over every rank),
+    each rank's window ms, and this rank's all_reduce figures. One
+    all_reduce of [rays, us_0, .., us_{n-1}] (float64), in which rank r
+    puts its window's whole us in slot r; rank 0 counts the tiles
+    (``parallel.tile_*``, the module's docstring)."""
     if stats is None:
         return
-    total = torch.tensor([rays], dtype=torch.float64, device=device)
-    if _world() > 1:
+    world, rank = _world(), _rank()
+    vec = [rays] + [0.0] * world
+    vec[1 + rank] = float(round(window.ms() * 1e3))
+    total = torch.tensor(vec, dtype=torch.float64, device=device)
+    if world > 1:
         dist.all_reduce(total)
-    stats["rays"] = stats.get("rays", 0.0) + float(total[0])
+    rays_all, *us = total.tolist()
+    stats["rays"] = stats.get("rays", 0.0) + rays_all
+    before = stats.get("window_ms", [0.0] * world)
+    stats["window_ms"] = [b + u / 1e3 for b, u in zip(before, us)]
+    if rank == 0:
+        logging.count("parallel.tile_us_max", int(max(us)))
+        logging.count("parallel.tile_us_sum", int(sum(us)))
+        logging.count("parallel.tile_windows", world)
     stats["allreduce_ms"] = stats.get("allreduce_ms", 0.0) + clock.ms()
     stats["allreduce_calls"] = stats.get("allreduce_calls", 0) + clock.calls
     stats["allreduce_bytes"] = stats.get("allreduce_bytes", 0) + clock.bytes
     stats["backend"] = dist.get_backend() if dist.is_initialized() else None
+
+
+def tile_imbalance_pct(window_ms: Sequence[float]) -> float:
+    """How far the slowest rank's window sets the image's pace: 100 x
+    (max x ranks / sum - 1); 0 when every window takes the same time."""
+    total = sum(window_ms)
+    return 100.0 * (max(window_ms) * len(window_ms) / total - 1.0) if total > 0 else 0.0
 
 
 # ---- sharded renders -------------------------------------------------------
@@ -356,6 +396,14 @@ def _check(cfg: RenderConfig, mesh: Mesh) -> None:
         raise ValueError(f"spp {cfg.spp} must divide by the mesh's spp axis {n_spp}")
 
 
+@contextlib.contextmanager
+def _window_span(timer: _Clock):
+    """The render of this rank's tile window: the span
+    ``parallel.sharding.window``, timed by ``timer``."""
+    with logging.span("parallel.sharding.window"), timer.span():
+        yield
+
+
 def _film_from_window(acc: torch.Tensor, shard: int, cfg: RenderConfig, mesh: Mesh,
                       clock: _Clock) -> torch.Tensor:
     """This rank's window sums [n_px, 3] -> the full film [H, W, 3]."""
@@ -379,17 +427,19 @@ def _render_film_windows(window_fn, sd, cam, cfg: RenderConfig, mesh: Mesh,
     _, s = mesh.coords
     spp_local = cfg.spp // n_spp
     shard, p0, n_px = _window(cfg.width * cfg.height, mesh)
-    clock = _Clock(sd.device)
+    clock, timer = _Clock(sd.device), _Clock(sd.device)
     win = film.accum.reshape(-1, 3)[p0:p0 + n_px]
     if n_spp == 1:  # as the single-device engine: the samples added to the film in order
         acc = win.clone()
-        rays = window_fn(sd, cam, cfg, acc, p0, film.count, cfg.spp)
+        with _window_span(timer):
+            rays = window_fn(sd, cam, cfg, acc, p0, film.count, cfg.spp)
     else:
         new = torch.zeros_like(win)
-        rays = window_fn(sd, cam, cfg, new, p0, film.count + s * spp_local, spp_local)
+        with _window_span(timer):
+            rays = window_fn(sd, cam, cfg, new, p0, film.count + s * spp_local, spp_local)
         acc = win + _all_reduce(new, mesh.spp_group, clock)
     accum = _film_from_window(acc, shard, cfg, mesh, clock)
-    _finish_stats(stats, rays, clock, sd.device)
+    _finish_stats(stats, rays, clock, timer, sd.device)
     return Film(accum, film.count + cfg.spp)
 
 
@@ -423,7 +473,7 @@ def _render_film_scan(sd, cam, cfg: RenderConfig, mesh: Mesh, film: Optional[Fil
     _, s = mesh.coords
     shard, p0, n_px = _window(cfg.width * cfg.height, mesh)
     eye, rot = camera_mod.camera_tensors(cam, sd.device)
-    clock = _Clock(sd.device)
+    clock, timer = _Clock(sd.device), _Clock(sd.device)
     acc = film.accum.reshape(-1, 3)[p0:p0 + n_px].clone()
     sppb = max(1, min(cfg.spp_batch, cfg.spp // n_spp))
     rays = 0.0
@@ -433,14 +483,16 @@ def _render_film_scan(sd, cam, cfg: RenderConfig, mesh: Mesh, film: Optional[Fil
         step = min(sppb, (cfg.spp - done) // n_spp)
         base = film.count + done + s * step
         if n_spp == 1:
-            rays += render_window(sd, eye, rot, acc, p0, base, cfg, step)
+            with _window_span(timer):
+                rays += render_window(sd, eye, rot, acc, p0, base, cfg, step)
         else:
             new = torch.zeros_like(acc)
-            rays += render_window(sd, eye, rot, new, p0, base, cfg, step)
+            with _window_span(timer):
+                rays += render_window(sd, eye, rot, new, p0, base, cfg, step)
             acc += _all_reduce(new, mesh.spp_group, clock)
         done += step * n_spp
     accum = _film_from_window(acc, shard, cfg, mesh, clock)
-    _finish_stats(stats, rays, clock, sd.device)
+    _finish_stats(stats, rays, clock, timer, sd.device)
     return Film(accum, film.count + done)
 
 
@@ -454,9 +506,12 @@ def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
     ``ValueError`` when cfg.spp does not divide by the spp axis, and for
     any integrator but 'full' (the JAX function renders NEE on its scan
     route whatever ``cfg.integrator`` asks). ``stats``, when given,
-    receives ``rays`` (the mesh's useful rays), this rank's
+    receives ``rays`` (the mesh's useful rays), ``window_ms`` (each rank's
+    render of its tile window, by global rank: device time on the card,
+    the host clock on the CPU), this rank's
     ``allreduce_ms``/``allreduce_calls``/``allreduce_bytes`` (the film's
-    all_reduce calls) and ``backend``."""
+    all_reduce calls) and ``backend``. Every rank of the group passes
+    ``stats`` or none does: it adds one collective."""
     if cfg.engine == "mega":
         return render_film_mega_distributed(sd, cam, cfg, mesh, film, stats)
     if cfg.engine == "pool":
