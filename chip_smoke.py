@@ -1370,7 +1370,8 @@ def main() -> None:
     kernels_out = [{
         "name": "mega_render", "route": "cuda", "source": src + "mega.cu",
         "replaces": "jaderaytracerendering_tpu/ops/pallas/mega.py:782",
-        "launches": launches["mega_render"], "max_abs_err": err3, "ms": ms3,
+        "launches": launches["mega_render"], "fold_launches": launches["mega_fold"],
+        "max_abs_err": err3, "ms": ms3,
         "plain_ms": plain_ms3, "bound_ms": bound3[0], "bound_by": bound3[1],
         "library_ms": None, "library_note": lib_note,
         "shape": "jade 20k, 96x96, 4 spp, depth 6 (ms, plain_ms, max_abs_err, bound_ms)",
@@ -1381,7 +1382,8 @@ def main() -> None:
         "oracle_rmse_rel": gate15["jade", "mega"]["rmse_rel"],
         "oracle_rmse_rel_statue": gate15["statue", "mega"]["rmse_rel"],
         "oracle_rmse_rel_refract": gate15["dir_refract", "mega"]["rmse_rel"],
-        "registers": {k: v for k, v in regs.items() if k.startswith("mega_render")},
+        "registers": {k: v for k, v in regs.items()
+                      if k.startswith(("mega_render", "mega_fold"))},
     }]
     for name, replaces in (
             ("spawn_primary", "ops/pallas/spawn_front.py:63"),

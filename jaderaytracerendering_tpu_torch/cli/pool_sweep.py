@@ -15,7 +15,10 @@ turns: mega, then the pool sizes up and back down, ``--reps`` rounds.
 
 ``--mega-builds`` builds the ``mega.cu`` (with the ``.cuh`` beside it) of
 each other source directory given, e.g. an older checkout's ``csrc``;
-each needs this tree's C interface. Each build's ``mega_render`` is
+each needs this tree's C interface (``mega_chunk()`` and the ten-argument
+``mega_render`` of the megakernel's work items; a build without them is
+refused as it loads, and an older kernel is timed by its own tree's
+``pool_sweep``). Each build's ``mega_render`` is
 timed with CUDA events, one launch each in turns with this tree's, and
 must give this tree's output bit for bit; its ptxas registers, stack and
 spills are printed. ``--preview`` times the preview kernel at the preview
@@ -103,36 +106,30 @@ def _ptxas(log_path, kernel: str = "mega_render_kernel") -> dict:
 def _mega_ab(sd, cam, cfg, dirs, reps, card) -> list:
     """``mega_render`` at the main path from this tree's library and the
     other builds, one launch each in turns -> rows (ms, ptxas figures)."""
-    import ctypes
     import pathlib
 
     import torch
 
     from ..integrator import mega as mega_mod
     from ..ops import build, kernels
+    from ..ops import mega as megak
 
     eye, rot = mega_mod.host_camera(cam)
-    s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
-    r = kernels.render_args(eye, rot, cfg, 0, cfg.spp)
     builds = {"this": (kernels.library(),
                        build.library_path("kernels", kernels.SOURCES))}
     for k, d in enumerate(dirs):
         src_dir = pathlib.Path(d).resolve()
         lib = build.load_library(f"mega-other{k}", ["mega.cu"], src_dir)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mega_render.argtypes = [vp, vp, ci, ci, vp, vp, vp]
-        lib.mega_render.restype = ctypes.c_int
+        try:
+            kernels.bind(lib, ("mega_render", "mega_chunk"))
+        except AttributeError as e:
+            raise SystemExit(f"--mega-builds {d}: {e}. A build must have this tree's C "
+                             "interface: mega_chunk() and mega_render(s, r, pix0, n_px, out, "
+                             "ld, part, next_item, stamps, stream)") from None
         builds[d] = (lib, build.library_path(f"mega-other{k}", ["mega.cu"], src_dir))
 
     def launch(lib):
-        out = torch.empty((4, cfg.width * cfg.height), dtype=torch.float32,
-                          device=sd.device)
-        counter = torch.zeros(1, dtype=torch.int32, device=sd.device)
-        kernels.check_rc(lib.mega_render(ctypes.byref(s), ctypes.byref(r), 0,
-                                         cfg.width * cfg.height, kernels.ptr(out),
-                                         kernels.ptr(counter), kernels.stream(sd.device)),
-                         "mega_render")
-        return out
+        return megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp, lib=lib)
 
     ref = launch(builds["this"][0])
     for name, (lib, _) in builds.items():

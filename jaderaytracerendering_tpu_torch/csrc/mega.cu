@@ -16,8 +16,20 @@
 // backward fold (PathTrace.cu:1410-1415, wavefront.composite_p) seeds from
 // its top entry, as the pool's resolve kernel does: the same sum as the
 // plain version's, rounded in another order, so the two agree to a few
-// ulps. A pixel's samples run in ascending order on one thread, so its sum
-// sees them in the plain version's order. Deterministic: no float atomics.
+// ulps.
+//
+// Work items and the fold. A launch of spp samples over a window of n_px
+// slots has n_px x K items, K = ceil(spp / MEGA_CHUNK): item i is chunk
+// i % K (samples MEGA_CHUNK x (i % K) onward, the last chunk shorter) of
+// slot i / K, so a pixel's chunks sit side by side and its samples spread
+// over neighbouring lanes. A lane sums its chunk's samples in ascending
+// order from zero and stores the sum and its useful rays as one float4
+// partial, item by item; mega_fold_kernel then sums each slot's K partials
+// in ascending chunk order from zero. C and K depend on spp alone, never
+// on the window, so a pixel's sum is the same whichever lane ran which
+// item and whichever window holds it; with MEGA_CHUNK 1 it makes the
+// additions of one thread summing its pixel's samples in turn. No float
+// atomics.
 //
 // What bounds it on this card: not FLOPs or bytes but the BVH walk, a
 // chase of dependent loads whose length differs from ray to ray (a few
@@ -37,16 +49,21 @@
 //   on, so a long walk does not hold the lanes of its warp idle. The
 //   shading (each device function at one call site) runs for the lanes
 //   that need it together.
-// - Path regeneration. A sample that ends starts the pixel's next sample
-//   at once, and a lane whose pixel is done takes the next pixel: no lane
-//   waits at a sample or bounce boundary for its warp's longest path.
-// - A persistent grid (SMs x resident blocks) whose warps take pixels
-//   from a global counter, as many as their lanes need, one atomicAdd a
-//   warp.
-// - A pixel window, as the TPU kernel's shard_px and offset: the counter
-//   hands out slots 0 .. n_px-1 of the window, the pixel is pix0 + slot
-//   (the camera ray and every draw key), and the output is indexed by
-//   slot. A multi-device render runs one window a tile shard.
+// - Path regeneration. A sample that ends starts its chunk's next sample
+//   at once, and a lane whose chunk is done takes the next item: no lane
+//   waits at a sample or bounce boundary for its warp's longest path, and
+//   once the counter runs dry a launch waits for one chunk's samples, not
+//   for a whole pixel's.
+// - A persistent grid (SMs x resident blocks) whose warps take items from
+//   a global counter, as many as their lanes need, one atomicAdd a warp.
+// - A pixel window, as the TPU kernel's shard_px and offset: slot j of the
+//   window is the pixel pix0 + j (the camera ray and every draw key), and
+//   the output is indexed by slot. A multi-device render runs one window
+//   a tile shard.
+// - Optional stamps (three u64 of %globaltimer ns, or null): the warps'
+//   first start (atomicMin), the first handout that finds the counter dry
+//   (atomicMin), the warps' last exit (atomicMax); ops/mega.py reads them
+//   as the launch's time and its tail.
 // - The packed walk tables and the shared-memory stack of path.cuh.
 // Direct refraction (DIR_REFRACT): the kernel is a template on HR; the
 // march (refract_march_dev, with its own walk, the second call site, in
@@ -64,8 +81,16 @@ namespace {
 constexpr int MEGA_THREADS = 128;
 constexpr int MEGA_MIN_BLOCKS = 4;  // 65536 / (128 x 4): at most 128 registers, 25% occupancy
 constexpr int MEGA_WALK_SLICE = 8;  // node visits between two looks for lanes whose walk ended
+constexpr int MEGA_CHUNK = 1;       // samples of one work item (PERF.md: swept 1, 2, 4, 8)
+constexpr int FOLD_THREADS = 256;
 
 constexpr int ST_PRIMARY = -1;  // step: the camera ray; 0..E-1 light i, E HDR, E+1 continuation
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // The block's dynamic shared memory: the walk stacks (path.cuh), then one
 // Front a thread.
@@ -75,17 +100,20 @@ __host__ __device__ inline size_t mega_smem_bytes(const SceneArgs& s) {
 
 template <bool HR>
 __global__ void __launch_bounds__(MEGA_THREADS, MEGA_MIN_BLOCKS)
-mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_px, float* __restrict__ out,
-                   int* __restrict__ next_pixel) {
+mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunks,
+                   float4* __restrict__ part, int* __restrict__ next_item,
+                   unsigned long long* __restrict__ stamps) {
   const int st_hdr = s.n_emit, st_cont = s.n_emit + 1;
   const unsigned lane = threadIdx.x & 31u;
+  if (stamps && lane == 0) atomicMin(&stamps[0], global_ns());
   const V eye = {r.eye[0], r.eye[1], r.eye[2]};
   const V zero3 = {0.0f, 0.0f, 0.0f};
   // the bounce's front, directions and march, made once a bounce
   Front& f = reinterpret_cast<Front*>(walk_stack + blockDim.x * s.stack_size)[threadIdx.x];
 
-  int pix = -1;  // the thread's slot of the window; -1: take one; >= n_px: the window is done
-  int k = 0;     // its sample (sample_base + k)
+  int item = -1;  // the thread's work item; -1: take one; >= n_items: the launch is done
+  int k = 0;      // its sample (sample_base + k)
+  int k_end = 0;  // the end of its chunk
   V sum = zero3;
   int nray = 0;  // useful rays (integers, exact in the f32 output)
   uint32_t h0 = 0;
@@ -108,12 +136,12 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_px, float* __restr
   };
 
   for (;;) {
-    bool start = false;  // begin a sample of pix this iteration
+    bool start = false;  // begin sample k of the item this iteration
     bool query = false;  // a new query (qo, qd, qx, q_any) to walk
     V qo = zero3;
     int qx = -1;
     bool q_any = false;
-    if (pix >= 0 && pix < n_px && !walking) {
+    if (item >= 0 && item < n_items && !walking) {
       // use the ended walk's result and make the next query, in passes over
       // the steps; each device function has one call site, so lanes of a
       // warp that stand at different steps run it together
@@ -219,37 +247,38 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_px, float* __restr
         done = true;
         break;
       }
-      if (done) {  // add the sample; the pixel's next, or write the pixel
+      if (done) {  // add the sample; the chunk's next, or store the item's partial
         sum = sum + rad;
-        if (++k < r.spp) {
+        if (++k < k_end) {
           start = true;
         } else {
-          out[pix] = sum.x;
-          out[n_px + pix] = sum.y;
-          out[2 * n_px + pix] = sum.z;
-          out[3 * n_px + pix] = (float)nray;
-          pix = -1;
+          part[item] = make_float4(sum.x, sum.y, sum.z, __int_as_float(nray));
+          item = -1;
         }
       }
     }
-    // lanes without a pixel take the next ones: one atomicAdd a warp
-    bool need = pix < 0;
+    // lanes without an item take the next ones: one atomicAdd a warp
+    bool need = item < 0;
     unsigned want = __ballot_sync(0xffffffffu, need);
     if (want) {
       int leader = __ffs(want) - 1;
       int base = 0;
-      if ((int)lane == leader) base = atomicAdd(next_pixel, __popc(want));
+      if ((int)lane == leader) {
+        base = atomicAdd(next_item, __popc(want));
+        if (stamps && base + __popc(want) >= n_items) atomicMin(&stamps[1], global_ns());
+      }
       base = __shfl_sync(0xffffffffu, base, leader);
       if (need) {
-        pix = base + __popc(want & ((1u << lane) - 1u));
-        k = 0;
+        item = base + __popc(want & ((1u << lane) - 1u));
+        k = (item % n_chunks) * MEGA_CHUNK;
+        k_end = min(k + MEGA_CHUNK, r.spp);
         sum = zero3;
         nray = 0;
-        start = pix < n_px;
+        start = item < n_items;
       }
     }
     if (start) {  // the camera ray of sample k (wavefront.trace_radiance_p)
-      const uint32_t gpix = (uint32_t)(pix0 + pix);  // the film's pixel
+      const uint32_t gpix = (uint32_t)(pix0 + item / n_chunks);  // the film's pixel
       h0 = sample_hash(gpix, r.sample_base + (uint32_t)k);
       qo = eye;
       qd = unit_eps(camera_dir(r, gpix, h0 + r.seed * K_SEED));
@@ -263,29 +292,63 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_px, float* __restr
       walk_begin(s, qo, unit_eps(qd), qx, q_any, w);
       walking = true;
     }
-    if (!__any_sync(0xffffffffu, pix < n_px)) break;  // every lane holds a slot here
+    if (!__any_sync(0xffffffffu, item < n_items)) break;  // every lane holds an item here
     if (walking) walking = !walk_run(s, w, MEGA_WALK_SLICE);
   }
+  if (stamps && lane == 0) atomicMax(&stamps[2], global_ns());
+}
+
+// Each slot's radiance sums and useful rays: its n_chunks partials summed in
+// ascending chunk order from zero, into column `slot` of out (row stride ld).
+__global__ void __launch_bounds__(FOLD_THREADS)
+mega_fold_kernel(const float4* __restrict__ part, int n_px, int n_chunks,
+                 float* __restrict__ out, int ld) {
+  const int slot = blockIdx.x * FOLD_THREADS + threadIdx.x;
+  if (slot >= n_px) return;
+  const float4* p = part + (size_t)slot * n_chunks;
+  V sum = {0.0f, 0.0f, 0.0f};
+  int nray = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float4 v = __ldg(p + c);
+    sum = sum + V{v.x, v.y, v.z};
+    nray += __float_as_int(v.w);
+  }
+  out[slot] = sum.x;
+  out[ld + slot] = sum.y;
+  out[2 * (size_t)ld + slot] = sum.z;
+  out[3 * (size_t)ld + slot] = (float)nray;  // integers, exact in the f32 output
 }
 
 }  // namespace
 
 extern "C" {
 
+// The samples of one work item (MEGA_CHUNK): ops/mega.py sizes the scratch by it.
+int mega_chunk() { return MEGA_CHUNK; }
+
 // Radiance sums [3, n_px] and useful rays [1, n_px] of the pixels pix0 ..
-// pix0 + n_px - 1 into out [4, n_px]; next_pixel: one int, zero at the
-// launch (the wrapper's).
-int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out,
-                int* next_pixel, void* stream) {
+// pix0 + n_px - 1 into out (rows 0-3, row stride ld >= n_px). part: the
+// n_px x K float4 partials, K = ceil(spp / MEGA_CHUNK); next_item: one int,
+// zero at the launch; stamps: null, or three u64 set to (max, max, 0) (the
+// wrapper's). The megakernel, then the fold, on the stream.
+int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out, int ld,
+                float4* part, int* next_item, unsigned long long* stamps, void* stream) {
   if (n_px <= 0) return 0;
-  auto kernel = s->has_refract ? mega_render_kernel<true> : mega_render_kernel<false>;
-  size_t smem = mega_smem_bytes(*s);
-  long long blocks = 0;
-  int rc = persistent_grid(kernel, MEGA_THREADS, smem, (n_px + MEGA_THREADS - 1) / MEGA_THREADS,
-                           blocks);
-  if (rc) return rc;
-  kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(*s, *r, pix0, n_px, out,
-                                                                          next_pixel);
+  const int n_chunks = r->spp > 0 ? (r->spp + MEGA_CHUNK - 1) / MEGA_CHUNK : 0;
+  const long long n_items = (long long)n_px * n_chunks;
+  if (n_items > (1LL << 30) || ld < n_px) return (int)cudaErrorInvalidValue;  // int counter
+  if (n_items > 0) {
+    auto kernel = s->has_refract ? mega_render_kernel<true> : mega_render_kernel<false>;
+    size_t smem = mega_smem_bytes(*s);
+    long long blocks = 0;
+    int rc = persistent_grid(kernel, MEGA_THREADS, smem,
+                             (n_items + MEGA_THREADS - 1) / MEGA_THREADS, blocks);
+    if (rc) return rc;
+    kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(
+        *s, *r, pix0, (int)n_items, n_chunks, part, next_item, stamps);
+  }
+  mega_fold_kernel<<<(n_px + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
+                     (cudaStream_t)stream>>>(part, n_px, n_chunks, out, ld);
   return (int)cudaGetLastError();
 }
 

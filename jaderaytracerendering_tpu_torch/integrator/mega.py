@@ -21,7 +21,7 @@ from ..core import camera as camera_mod
 from ..core.film import Film
 from ..ops import mega as megak
 from ..utils.config import RenderConfig
-from ..utils.logging import span
+from ..utils.logging import recording, span
 
 
 def host_camera(cam):
@@ -39,18 +39,25 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
                        spp: int) -> float:
     """Add the radiance sums of ``spp`` samples from ``sample_base`` of the
     pixels pix0 .. pix0+len(acc)-1 into ``acc`` [n_px, 3] in place, one
-    launch per ``mega_spp_batch`` samples -> the useful rays traced."""
+    launch per ``mega_spp_batch`` samples -> the useful rays traced. While
+    spans are recorded the launches' stamps are read after the rays' sync
+    into the counters ``ops.mega.launch_us`` and ``ops.mega.tail_us``."""
     eye, rot = host_camera(cam)
     n_px = acc.shape[0]
     rays = torch.zeros((), dtype=torch.float64, device=acc.device)
+    stamps = [] if recording() else None
     done = 0
     while done < spp and n_px:
         step = min(max(1, cfg.mega_spp_batch), spp - done)
-        out = megak.mega_render(sd, eye, rot, cfg, sample_base + done, step, pix0, n_px)
+        out = megak.mega_render(sd, eye, rot, cfg, sample_base + done, step, pix0, n_px,
+                                stamps=stamps)
         acc += out[0:3].T
         rays += out[3].sum(dtype=torch.float64)
         done += step
-    return float(rays)
+    rays = float(rays)
+    if stamps:
+        megak.count_stamps(stamps)
+    return rays
 
 
 def render_film_mega(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,

@@ -7,8 +7,10 @@ preview kernel) share the device functions of ``csrc/path.cuh``;
 ``csrc/postfx.cu`` (the display kernel) stands alone. All four build into
 one library. Each wrapper (ops/mega.py, ops/trace.py, ops/spawn_front.py,
 ops/bounce_front.py, ops/bounce_resolve.py, ops/postfx.py) adds one to
-its entry of ``LAUNCHES`` where it launches its kernel and nowhere else,
-so a caller can show that a run went through the kernels.
+its entry of ``LAUNCHES`` for each launch of its kernel and nowhere else
+(``mega_render`` also to ``mega_fold`` for the fold that follows each
+megakernel launch), so a caller can show that a run went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from . import build
 from .intersect import INF  # noqa: F401  (a miss's t, as the kernels write it)
 
 SOURCES = ["mega.cu", "pool.cu", "preview.cu", "postfx.cu"]
-LAUNCHES = {"mega_render": 0, "trace_segments": 0, "spawn_primary": 0,
+LAUNCHES = {"mega_render": 0, "mega_fold": 0, "trace_segments": 0, "spawn_primary": 0,
             "front_bounce": 0, "resolve_bounce": 0, "render_preview_mega": 0,
             "postfx": 0}
 MAX_STACK = 128  # the largest cfg.bvh_stack_size (entries) the kernels accept
@@ -67,19 +69,33 @@ class PoolArgs(ctypes.Structure):
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (first use, keyed by the sources' hash) and load csrc/*.cu."""
-    lib = build.load_library("kernels", SOURCES)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, args in (("mega_render", [vp, vp, ci, ci, vp, vp, vp]),
-                       ("preview_render", [vp, vp, ci, ci, ci, vp, vp]),
-                       ("postfx", [vp, vp, ci, ci, ci, ci, ci, cf, cf, ci, cf, cf, ci, vp]),
-                       ("spawn_scratch_words", [ci]),
-                       ("spawn_primary", [vp, vp, vp, vp, vp, vp]),
-                       ("front_bounce", [vp, vp, vp, vp, vp, vp, vp]),
-                       ("trace_segments", [vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]),
-                       ("resolve_bounce", [vp, vp, vp, vp, vp, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ci
+    return bind(build.load_library("kernels", SOURCES))
+
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {  # entry point of csrc/*.cu -> its ctypes argument types; each returns int
+    "mega_render": [_vp, _vp, _ci, _ci, _vp, _ci, _vp, _vp, _vp, _vp],
+    "mega_chunk": [],
+    "preview_render": [_vp, _vp, _ci, _ci, _ci, _vp, _vp],
+    "postfx": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _ci, _cf, _cf, _ci, _vp],
+    "spawn_scratch_words": [_ci],
+    "spawn_primary": [_vp, _vp, _vp, _vp, _vp, _vp],
+    "front_bounce": [_vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    "trace_segments": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp],
+    "resolve_bounce": [_vp, _vp, _vp, _vp, _vp, _vp]}
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Give the entry points ``names`` of ``lib`` (default: every one of
+    csrc/*.cu) their ctypes argument and return types; returns ``lib``.
+    An entry point that ``lib`` lacks raises AttributeError naming it."""
+    for name in SIGNATURES if names is None else names:
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            raise AttributeError(f"{lib._name} has no entry point {name!r}") from None
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -7,7 +7,13 @@
 for a scene on a CUDA device and runs its plain PyTorch version for a
 scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
 counts kernel launches, so a caller can show that a run went through the
-kernels.
+kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's.
+
+The megakernel's work items are (pixel, chunk of ``chunk`` samples)
+pairs, ``chunk`` the library's ``mega_chunk()`` (``MEGA_CHUNK`` in
+csrc/mega.cu); each item leaves a float4 partial in a scratch buffer that
+the fold kernel sums per pixel. ``launch_windows`` splits a call into
+launches of at most ``MAX_ITEMS`` items, which bounds the scratch.
 """
 
 from __future__ import annotations
@@ -16,9 +22,33 @@ import ctypes
 
 import torch
 
+from ..utils import logging
 from ..utils.logging import span
 from . import kernels
 from .kernels import LAUNCHES
+
+MAX_ITEMS = 1 << 26  # work items of one launch: 1 GiB of float4 partials
+_NEVER = (1 << 63) - 1  # a stamp's start before atomicMin
+
+
+def n_chunks(spp: int, chunk: int) -> int:
+    """K: the work items of one pixel, ceil(spp / chunk) (0 for no samples)."""
+    return max(0, -(-int(spp) // int(chunk)))
+
+
+def launch_windows(n_px: int, spp: int, chunk: int) -> list[tuple[int, int]]:
+    """(first slot, slots) of each launch of a window of ``n_px`` slots: as
+    many slots as ``MAX_ITEMS`` items hold (at least one), the last window
+    shorter. A pixel's sum does not depend on the launch that holds it."""
+    per = max(1, MAX_ITEMS // max(1, n_chunks(spp, chunk)))
+    return [(a, min(per, n_px - a)) for a in range(0, n_px, per)]
+
+
+def scratch_shape(n_px: int, spp: int, chunk: int) -> tuple[int, int]:
+    """The partials' shape, [items of the largest launch, 4] f32 (one
+    float4 an item: three radiance sums, the useful rays' int bits)."""
+    wins = launch_windows(n_px, spp, chunk)
+    return (max((n for _, n in wins), default=0) * n_chunks(spp, chunk), 4)
 
 
 def _window(cfg, pix0: int, n_px) -> int:
@@ -54,24 +84,52 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
 
 
 def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int, spp: int,
-                pix0: int = 0, n_px: int | None = None) -> torch.Tensor:
+                pix0: int = 0, n_px: int | None = None, stamps: list | None = None,
+                lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """Render ``spp`` samples of the pixel window pix0 .. pix0+n_px-1 (the
     whole film by default) -> [4, n_px] f32 (radiance sums, useful rays),
     column j for pixel pix0 + j. ``eye`` [3] and ``rot`` [4, 4] are the
-    camera."""
+    camera. ``stamps``, a list, receives one int64 [3] device tensor a
+    launch (start, dry counter, end: %globaltimer ns; ``count_stamps``).
+    ``lib``: the library to launch (default this tree's, bound by
+    ``kernels.bind``)."""
     if sd.device.type == "cpu":
         return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px)
     n_px = _window(cfg, pix0, n_px)
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
     r = kernels.render_args(eye, rot, cfg, sample_base, spp)
+    lib = kernels.library() if lib is None else lib
+    chunk = lib.mega_chunk()
     out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
-    next_pixel = torch.zeros(1, dtype=torch.int32, device=sd.device)  # the work counter
-    rc = kernels.library().mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0), n_px,
-                                       kernels.ptr(out), kernels.ptr(next_pixel),
-                                       kernels.stream(sd.device))
-    kernels.check_rc(rc, "mega_render")
-    LAUNCHES["mega_render"] += 1
+    wins = launch_windows(n_px, spp, chunk)
+    part = torch.empty(scratch_shape(n_px, spp, chunk), dtype=torch.float32, device=sd.device)
+    next_item = torch.zeros(len(wins), dtype=torch.int32, device=sd.device)  # work counters
+    for i, (a, n) in enumerate(wins):
+        st = None
+        if stamps is not None and spp > 0:  # no samples: no megakernel to stamp
+            st = torch.full((3,), _NEVER, dtype=torch.int64, device=sd.device)
+            st[2] = 0
+            stamps.append(st)
+        rc = lib.mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0) + a, n,
+                             ctypes.c_void_p(out.data_ptr() + 4 * a), n_px, kernels.ptr(part),
+                             ctypes.c_void_p(next_item.data_ptr() + 4 * i),
+                             None if st is None else kernels.ptr(st), kernels.stream(sd.device))
+        kernels.check_rc(rc, "mega_render")
+        LAUNCHES["mega_render"] += int(spp > 0)  # no samples: no items, the fold alone
+        LAUNCHES["mega_fold"] += 1
     return out
+
+
+def count_stamps(stamps: list) -> None:
+    """Add the launches' times and tails (``mega_render``'s ``stamps``,
+    read once the work is done) to the counters ``ops.mega.launch_us``
+    (end less start) and ``ops.mega.tail_us`` (end less the first handout
+    that found the counter dry), rounded to whole us over the list."""
+    if not stamps:
+        return
+    t = torch.stack(stamps).cpu()
+    logging.count("ops.mega.launch_us", round(int((t[:, 2] - t[:, 0]).sum()) / 1e3))
+    logging.count("ops.mega.tail_us", round(int((t[:, 2] - t[:, 1]).sum()) / 1e3))
 
 
 def render_preview_mega_plain(sd, eye, rot, cfg, sample_base: int, spp: int,

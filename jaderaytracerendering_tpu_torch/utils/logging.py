@@ -136,6 +136,11 @@ def span(name: str, request: bool = False):
     return RECORDER.record(name, request)
 
 
+def recording() -> bool:
+    """Whether spans and counters are recorded now (a profiler is on)."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def count(name: str, n: int) -> None:
     """Add ``n`` to the counter ``name`` while recording."""
     if _profiler._is_profiler_enabled:

@@ -250,7 +250,7 @@ def test_mega_render_kernel_matches_plain(jade_cuda):
 
 def test_mega_render_matches_plain_over_several_grid_passes(jade_cuda):
     """A film of more pixels than the persistent grid holds threads (at
-    most 2048 a multiprocessor), so its warps take pixels again and again."""
+    most 2048 a multiprocessor), so its warps take items again and again."""
     ds, sd = jade_cuda
     cfg = RenderConfig(width=640, height=480, spp=1, max_depth=4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -585,6 +585,93 @@ def test_mega_windows_are_bit_equal_to_the_whole_film(jade_cuda):
     whole = megak.mega_render(sd, eye, rot, big, 0, 1)
     win = megak.mega_render(sd, eye, rot, big, 0, 1, 1001, 300_000)
     assert torch.equal(win, whole[:, 1001:301_001])
+
+
+@pytest.mark.parametrize("spp", [8, 7])
+def test_mega_call_split_into_launches_is_bit_equal(jade_cuda, monkeypatch, spp):
+    """A call of more items than MAX_ITEMS splits into launches of whole
+    slots (each writes ``out`` from its first slot at the window's row
+    stride, with a counter of its own and the one scratch): film and
+    useful rays equal one launch's bit for bit, over the whole film and a
+    window; each launch counts one megakernel, one fold and one stamp."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=spp, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
+    whole = megak.mega_render(sd, eye, rot, cfg, 3, spp)
+    chunk = kernels.library().mega_chunk()
+    monkeypatch.setattr(megak, "MAX_ITEMS", 4096)
+    for pix0, n_px in ((0, 64 * 48), (1001, 1500)):
+        wins = megak.launch_windows(n_px, spp, chunk)
+        assert len(wins) > 2
+        kernels.reset_launches()
+        stamps = []
+        split = megak.mega_render(sd, eye, rot, cfg, 3, spp, pix0, n_px, stamps=stamps)
+        assert kernels.LAUNCHES["mega_render"] == kernels.LAUNCHES["mega_fold"] == len(wins)
+        assert len(stamps) == len(wins)
+        assert torch.equal(split, whole[:, pix0:pix0 + n_px]), (pix0, n_px)
+
+
+@pytest.mark.parametrize("spp", [8, 7])
+def test_mega_launch_is_the_ascending_fold_of_its_chunks(jade_cuda, spp):
+    """One launch of ``spp`` samples equals, bit for bit, the ascending f32
+    sum from zero of launches of MEGA_CHUNK samples at sample_base + j x
+    MEGA_CHUNK (the last one shorter), each one item a pixel; useful rays
+    equal. So the fold adds each pixel's chunks in sample order."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=48, height=40, spp=spp, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
+    chunk = kernels.library().mega_chunk()
+    whole = megak.mega_render(sd, eye, rot, cfg, 5, spp)
+    acc = torch.zeros((3, 48 * 40), device="cuda")
+    rays = torch.zeros(48 * 40, device="cuda")
+    for j in range(0, spp, chunk):
+        part = megak.mega_render(sd, eye, rot, cfg, 5 + j, min(chunk, spp - j))
+        acc = acc + part[:3]
+        rays = rays + part[3]
+    assert torch.equal(whole[:3], acc) and torch.equal(whole[3], rays)
+
+
+def test_mega_launches_of_the_same_arguments_are_bit_equal(jade_cuda):
+    """Lanes take items in another order each launch; the film does not
+    follow them."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=16, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
+    a = megak.mega_render(sd, eye, rot, cfg, 1, cfg.spp)
+    b = megak.mega_render(sd, eye, rot, cfg, 1, cfg.spp)
+    assert torch.equal(a, b)
+
+
+def test_statue_heavy_mega_windows_are_bit_equal_to_the_whole_film(jade_cuda):
+    """The jade statue close up (orbit r 1.2) at 64 spp, where a few
+    pixels' samples take most of a launch: each window renders the whole
+    film's columns bit for bit."""
+    ds, sd = jade_cuda
+    cam = dataclasses.replace(ds.camera, r=1.2)
+    cfg = RenderConfig(width=64, height=48, spp=64, max_depth=5)
+    eye, rot = camera_mod.camera_tensors(cam, "cpu")
+    whole = megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp)
+    for pix0, n_px in WINDOWS + [(1500, 1)]:
+        win = megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp, pix0, n_px)
+        assert torch.equal(win, whole[:, pix0:pix0 + n_px]), (pix0, n_px)
+
+
+def test_mega_stamps_count_the_launch_and_its_tail(jade_cuda):
+    """Under the recorder each image's launches add their time and their
+    tail (from the first handout that found the counter dry) in us:
+    0 < tail <= launch. Without it nothing is counted."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=128, max_depth=5)
+    tlog.reset()
+    trender.render_film(sd, ds.camera, cfg)
+    assert "ops.mega.launch_us" not in tlog.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        kernels.reset_launches()
+        trender.render_film(sd, ds.camera, cfg)
+        got = dict(tlog.counters())
+    tlog.reset()
+    assert kernels.LAUNCHES["mega_render"] == kernels.LAUNCHES["mega_fold"] == 2
+    assert 0 < got["ops.mega.tail_us"] <= got["ops.mega.launch_us"]
 
 
 def test_pool_window_matches_the_mega_window(jade_cuda):
