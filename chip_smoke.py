@@ -319,6 +319,21 @@ def device_kernels(prof, kernel: str, first: int) -> dict:
     return out
 
 
+def trace_wrappers(run, names) -> dict:
+    """One ``run()`` under torch.profiler (``traced``) -> its wall ms, the
+    device's busy ms and idle share, and for each kernel wrapper of
+    ``names`` its kernel's (``<name>_kernel``) device ms and launches."""
+    wall, prof = traced(lambda: host_ms(run), f"{names[0]}_kernel")
+    dev = device_events(prof)
+
+    def ms(events):
+        return sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+
+    ran = {k: [e for e in dev if f"{k}_kernel" in e.name] for k in names}
+    return dict(wall_ms=wall, busy_ms=ms(dev), idle_share=1.0 - ms(dev) / wall,
+                wrappers={k: dict(device_ms=ms(v), launches=len(v)) for k, v in ran.items() if v})
+
+
 def banded_display_plain(accum, frame_idx: int, bands: int, spp: int, mode: str):
     """The banded preview's display by the plain postfx, band by band,
     each band with its own count: bands up to ``frame_idx % bands`` have
@@ -615,7 +630,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
-    from jaderaytracerendering_tpu_torch.cli import pool_sweep
     from jaderaytracerendering_tpu_torch.cli import preview as cli_preview
     from jaderaytracerendering_tpu_torch.cli import render as cli_render
     from jaderaytracerendering_tpu_torch.cli import rmse_gate
@@ -887,16 +901,12 @@ def main() -> None:
         + f"; trace ids differ {it8['trace_segments']['ids_differ']}, t differ "
         f"{it8['trace_segments']['t_differ']}; trace work {it8['trace_segments']['work']} "
         f"[{gpu}]")
-    # one more pool main-path render under the profiler (cli/pool_sweep.py's
-    # trace): each pool kernel's launches and device total over the render.
-    # The trace must hold every launch the render made (one spawn launch a
-    # round): the profiler at times loses device events, so it is traced
-    # again until it does
+    # one more pool main-path render under the profiler: each pool kernel's
+    # launches and device total over the render. The trace must hold every
+    # launch the render made (one spawn launch a round): the profiler at
+    # times loses device events, so it is traced again until it does
     for _ in range(3):
-        tr8 = pool_sweep.trace_render(
-            lambda s, c, f, stats=None: pool.render_film_pool(s, c, f.replace(engine="pool"),
-                                                              stats=stats),
-            sd, ds.camera, cfg4)
+        tr8 = trace_wrappers(lambda: pool.render_film_pool(sd, ds.camera, cfg4), pool_names)
         seen8 = {k: v["launches"] for k, v in tr8["wrappers"].items()}
         if seen8 == {k: launches8[k] for k in pool_names}:
             break
@@ -1185,7 +1195,7 @@ def main() -> None:
                                  f"from phase 4's film")
         acc_w = torch.zeros((n_px, 3), device=dev)
         t_w = time.perf_counter()
-        pool_rays_w, _ = pool.render_window_pool(sd, ds.camera, cfg4, acc_w, p0, 0, cfg4.spp)
+        pool_rays_w = pool.render_window_pool(sd, ds.camera, cfg4, acc_w, p0, 0, cfg4.spp)
         torch.cuda.synchronize()
         pool_w_ms = (time.perf_counter() - t_w) * 1e3
         mega_rays_w = float(out_w[3].sum(dtype=torch.float64))

@@ -28,7 +28,7 @@ The JAX package is the reference; this package never imports ``jax``.
                  and the spans and counters recorded under torch.profiler.
 - ``cli``        ``python -m jaderaytracerendering_tpu_torch.cli.render``
                  (``--mesh TILExSPP`` over ranks), ``cli.preview``, and
-                 the measurement tools ``cli.pool_sweep``, ``cli.film_ab``.
+                 the measurement tool ``cli.film_ab``.
 - ``entry``      ``entry()`` and ``dryrun_multichip(n)``.
 """
 

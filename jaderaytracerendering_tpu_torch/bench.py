@@ -42,6 +42,7 @@ import time
 
 import torch
 
+from .integrator.render import ENGINES
 from .cli import common
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -71,7 +72,7 @@ def parse_args(argv=None):
                     help="samples per scan-engine batch")
     ap.add_argument("--traversal", default="sweep",
                     help="a JAX traversal name; every one walks the BVH here")
-    ap.add_argument("--engine", default="pool", choices=["pool", "scan", "mega"])
+    ap.add_argument("--engine", default="pool", choices=list(ENGINES))
     ap.add_argument("--reps", type=int, default=8, help="timed renders after the warm one")
     ap.add_argument("--spawn-rounds", dest="spawn_rounds", type=int, default=0,
                     help="pool: spawn rounds per iteration (0 = the config's default)")

@@ -7,6 +7,7 @@ import dataclasses
 import os
 
 from ..core.camera import FixedCamera
+from ..integrator.render import ENGINES
 from ..models import demo
 from ..scene import hdr as hdr_mod, objloader, procedural, serialization
 from ..scene.scene import SceneObject
@@ -102,7 +103,7 @@ def add_common_args(ap) -> None:
     ap.add_argument("--max-depth", dest="max_depth", type=int)
     ap.add_argument("--traversal", choices=["sweep", "clusters", "gemm", "bvh", "brute"],
                     help="the JAX CLI's choices; every one walks the BVH here")
-    ap.add_argument("--engine", choices=["mega", "scan", "pool"])
+    ap.add_argument("--engine", choices=list(ENGINES))
     ap.add_argument("--spp-batch", dest="spp_batch", type=int,
                     help="samples per scan-engine batch (and per preview frame with --spp)")
     ap.add_argument("--rays-per-launch", dest="rays_per_launch", type=int,

@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 
+from ..integrator.render import ENGINES
 from . import common
 from .rmse_gate import rmse_rel
 
@@ -32,7 +33,7 @@ SPPS = (1, 4, 16, 64, 256)
 def main(argv=None) -> dict:
     """Run the study -> {'rows': [(spp, relative RMSE)], 'slope', ...}."""
     ap = argparse.ArgumentParser(prog="jade-convergence")
-    ap.add_argument("--engine", choices=["mega", "pool", "scan"], default="pool")
+    ap.add_argument("--engine", choices=list(ENGINES), default="pool")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the scene and the renders live (default cuda)")
     ap.add_argument("--size", type=int, default=64)

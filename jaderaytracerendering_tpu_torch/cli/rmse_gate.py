@@ -31,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from ..integrator.render import ENGINES
 from . import common
 
 GATE = 1e-3  # BASELINE.md:31
@@ -99,7 +100,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--tris", type=int, default=300)
     ap.add_argument("--spp-batch", dest="spp_batch", type=int, default=8)
-    ap.add_argument("--engine", choices=["mega", "pool", "scan"], default="pool")
+    ap.add_argument("--engine", choices=list(ENGINES), default="pool")
     ap.add_argument("--traversal", default="sweep",
                     choices=["sweep", "clusters", "gemm", "bvh", "brute"],
                     help="the JAX CLI's choices; every one walks the BVH here")

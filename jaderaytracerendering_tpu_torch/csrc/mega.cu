@@ -19,17 +19,14 @@
 // ulps.
 //
 // Work items and the fold. A launch of spp samples over a window of n_px
-// slots has n_px x K items, K = ceil(spp / MEGA_CHUNK): item i is chunk
-// i % K (samples MEGA_CHUNK x (i % K) onward, the last chunk shorter) of
-// slot i / K, so a pixel's chunks sit side by side and its samples spread
-// over neighbouring lanes. A lane sums its chunk's samples in ascending
-// order from zero and stores the sum and its useful rays as one float4
-// partial, item by item; mega_fold_kernel then sums each slot's K partials
-// in ascending chunk order from zero. C and K depend on spp alone, never
-// on the window, so a pixel's sum is the same whichever lane ran which
-// item and whichever window holds it; with MEGA_CHUNK 1 it makes the
-// additions of one thread summing its pixel's samples in turn. No float
-// atomics.
+// slots has n_px x spp items: item i is sample i % spp of slot i / spp, so
+// a pixel's samples sit side by side and spread over neighbouring lanes. A
+// lane runs its item's sample and stores its radiance and useful rays as
+// one float4 partial; mega_fold_kernel then sums each slot's spp partials
+// in ascending sample order from zero: the additions of one thread summing
+// its pixel's samples in turn. The items depend on spp alone, never on the
+// window, so a pixel's sum is the same whichever lane ran which item and
+// whichever window holds it. No float atomics.
 //
 // What bounds it on this card: not FLOPs or bytes but the BVH walk, a
 // chase of dependent loads whose length differs from ray to ray (a few
@@ -49,11 +46,10 @@
 //   on, so a long walk does not hold the lanes of its warp idle. The
 //   shading (each device function at one call site) runs for the lanes
 //   that need it together.
-// - Path regeneration. A sample that ends starts its chunk's next sample
-//   at once, and a lane whose chunk is done takes the next item: no lane
-//   waits at a sample or bounce boundary for its warp's longest path, and
-//   once the counter runs dry a launch waits for one chunk's samples, not
-//   for a whole pixel's.
+// - Path regeneration. A lane whose sample ends takes the next item at
+//   once: no lane waits at a sample or bounce boundary for its warp's
+//   longest path, and once the counter runs dry a launch waits for one
+//   sample's path, not for a whole pixel's.
 // - A persistent grid (SMs x resident blocks) whose warps take items from
 //   a global counter, as many as their lanes need, one atomicAdd a warp.
 // - A pixel window, as the TPU kernel's shard_px and offset: slot j of the
@@ -81,7 +77,6 @@ namespace {
 constexpr int MEGA_THREADS = 128;
 constexpr int MEGA_MIN_BLOCKS = 4;  // 65536 / (128 x 4): at most 128 registers, 25% occupancy
 constexpr int MEGA_WALK_SLICE = 8;  // node visits between two looks for lanes whose walk ended
-constexpr int MEGA_CHUNK = 1;       // samples of one work item (PERF.md: swept 1, 2, 4, 8)
 constexpr int FOLD_THREADS = 256;
 
 constexpr int ST_PRIMARY = -1;  // step: the camera ray; 0..E-1 light i, E HDR, E+1 continuation
@@ -100,7 +95,7 @@ __host__ __device__ inline size_t mega_smem_bytes(const SceneArgs& s) {
 
 template <bool HR>
 __global__ void __launch_bounds__(MEGA_THREADS, MEGA_MIN_BLOCKS)
-mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunks,
+mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
                    float4* __restrict__ part, int* __restrict__ next_item,
                    unsigned long long* __restrict__ stamps) {
   const int st_hdr = s.n_emit, st_cont = s.n_emit + 1;
@@ -112,10 +107,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunk
   Front& f = reinterpret_cast<Front*>(walk_stack + blockDim.x * s.stack_size)[threadIdx.x];
 
   int item = -1;  // the thread's work item; -1: take one; >= n_items: the launch is done
-  int k = 0;      // its sample (sample_base + k)
-  int k_end = 0;  // the end of its chunk
-  V sum = zero3;
-  int nray = 0;  // useful rays (integers, exact in the f32 output)
+  int nray = 0;   // its useful rays (integers, exact in the f32 output)
   uint32_t h0 = 0;
   int step = ST_PRIMARY, b = 0;
   bool entered = false;  // the path entered bounce b; its front is not made yet
@@ -136,7 +128,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunk
   };
 
   for (;;) {
-    bool start = false;  // begin sample k of the item this iteration
+    bool start = false;  // begin the item's sample this iteration
     bool query = false;  // a new query (qo, qd, qx, q_any) to walk
     V qo = zero3;
     int qx = -1;
@@ -247,14 +239,9 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunk
         done = true;
         break;
       }
-      if (done) {  // add the sample; the chunk's next, or store the item's partial
-        sum = sum + rad;
-        if (++k < k_end) {
-          start = true;
-        } else {
-          part[item] = make_float4(sum.x, sum.y, sum.z, __int_as_float(nray));
-          item = -1;
-        }
+      if (done) {  // the item's partial
+        part[item] = make_float4(rad.x, rad.y, rad.z, __int_as_float(nray));
+        item = -1;
       }
     }
     // lanes without an item take the next ones: one atomicAdd a warp
@@ -270,16 +257,13 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunk
       base = __shfl_sync(0xffffffffu, base, leader);
       if (need) {
         item = base + __popc(want & ((1u << lane) - 1u));
-        k = (item % n_chunks) * MEGA_CHUNK;
-        k_end = min(k + MEGA_CHUNK, r.spp);
-        sum = zero3;
         nray = 0;
         start = item < n_items;
       }
     }
-    if (start) {  // the camera ray of sample k (wavefront.trace_radiance_p)
-      const uint32_t gpix = (uint32_t)(pix0 + item / n_chunks);  // the film's pixel
-      h0 = sample_hash(gpix, r.sample_base + (uint32_t)k);
+    if (start) {  // the camera ray of the item's sample (wavefront.trace_radiance_p)
+      const uint32_t gpix = (uint32_t)(pix0 + item / r.spp);  // the film's pixel
+      h0 = sample_hash(gpix, r.sample_base + (uint32_t)(item % r.spp));
       qo = eye;
       qd = unit_eps(camera_dir(r, gpix, h0 + r.seed * K_SEED));
       qx = -1;
@@ -298,17 +282,17 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items, int n_chunk
   if (stamps && lane == 0) atomicMax(&stamps[2], global_ns());
 }
 
-// Each slot's radiance sums and useful rays: its n_chunks partials summed in
-// ascending chunk order from zero, into column `slot` of out (row stride ld).
+// Each slot's radiance sums and useful rays: its spp partials summed in
+// ascending sample order from zero, into column `slot` of out (row stride ld).
 __global__ void __launch_bounds__(FOLD_THREADS)
-mega_fold_kernel(const float4* __restrict__ part, int n_px, int n_chunks,
+mega_fold_kernel(const float4* __restrict__ part, int n_px, int spp,
                  float* __restrict__ out, int ld) {
   const int slot = blockIdx.x * FOLD_THREADS + threadIdx.x;
   if (slot >= n_px) return;
-  const float4* p = part + (size_t)slot * n_chunks;
+  const float4* p = part + (size_t)slot * spp;
   V sum = {0.0f, 0.0f, 0.0f};
   int nray = 0;
-  for (int c = 0; c < n_chunks; ++c) {
+  for (int c = 0; c < spp; ++c) {
     const float4 v = __ldg(p + c);
     sum = sum + V{v.x, v.y, v.z};
     nray += __float_as_int(v.w);
@@ -323,19 +307,16 @@ mega_fold_kernel(const float4* __restrict__ part, int n_px, int n_chunks,
 
 extern "C" {
 
-// The samples of one work item (MEGA_CHUNK): ops/mega.py sizes the scratch by it.
-int mega_chunk() { return MEGA_CHUNK; }
-
 // Radiance sums [3, n_px] and useful rays [1, n_px] of the pixels pix0 ..
 // pix0 + n_px - 1 into out (rows 0-3, row stride ld >= n_px). part: the
-// n_px x K float4 partials, K = ceil(spp / MEGA_CHUNK); next_item: one int,
-// zero at the launch; stamps: null, or three u64 set to (max, max, 0) (the
-// wrapper's). The megakernel, then the fold, on the stream.
+// n_px x spp float4 partials; next_item: one int, zero at the launch;
+// stamps: null, or three u64 set to (max, max, 0) (the wrapper's). The
+// megakernel, then the fold, on the stream.
 int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out, int ld,
                 float4* part, int* next_item, unsigned long long* stamps, void* stream) {
   if (n_px <= 0) return 0;
-  const int n_chunks = r->spp > 0 ? (r->spp + MEGA_CHUNK - 1) / MEGA_CHUNK : 0;
-  const long long n_items = (long long)n_px * n_chunks;
+  const int spp = r->spp > 0 ? r->spp : 0;
+  const long long n_items = (long long)n_px * spp;
   if (n_items > (1LL << 30) || ld < n_px) return (int)cudaErrorInvalidValue;  // int counter
   if (n_items > 0) {
     auto kernel = s->has_refract ? mega_render_kernel<true> : mega_render_kernel<false>;
@@ -345,10 +326,10 @@ int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, flo
                              (n_items + MEGA_THREADS - 1) / MEGA_THREADS, blocks);
     if (rc) return rc;
     kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(
-        *s, *r, pix0, (int)n_items, n_chunks, part, next_item, stamps);
+        *s, *r, pix0, (int)n_items, part, next_item, stamps);
   }
   mega_fold_kernel<<<(n_px + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
-                     (cudaStream_t)stream>>>(part, n_px, n_chunks, out, ld);
+                     (cudaStream_t)stream>>>(part, n_px, spp, out, ld);
   return (int)cudaGetLastError();
 }
 

@@ -51,13 +51,14 @@ def entry(device: str = "cuda"):
 
 def _dryrun_rank(n_devices: int, device: str) -> dict:
     """One rank of ``dryrun_multichip``: the three engines over the mesh."""
+    from .integrator.render import ENGINES
     from .parallel import sharding
 
     n_spp = 2 if n_devices % 2 == 0 else 1
     mesh = sharding.make_mesh((n_devices // n_spp, n_spp))
     ds, sd, cfg, _, _ = _tiny_setup(sharding.rank_device(device))
     counts = {}
-    for engine in ("scan", "pool", "mega"):
+    for engine in ENGINES:
         film = sharding.render_film_distributed(
             sd, ds.camera, cfg.replace(engine=engine, spp=2 * n_spp), mesh)
         if not bool(torch.isfinite(film.accum).all()) or film.count != 2 * n_spp:

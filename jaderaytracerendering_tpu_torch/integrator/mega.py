@@ -5,10 +5,11 @@ The JAX package's integrator/mega.py ``render_film_mega`` without its TPU
 eligibility and VMEM-budget logic and table packing: any scene on the
 card runs here. Each launch renders samples ``film.count + done ..`` of
 every pixel (ops/mega.py ``mega_render``) and its radiance sums are
-folded into the Film. ``render_window_mega`` does the same for a pixel
-window, the tile shard of a multi-device render (parallel/sharding.py).
-The preview's frames through the preview kernel are routed in
-integrator/render.py (``render_film_preview``).
+folded into the Film. ``render_window_mega``, the engine's window
+function (integrator/render.py ``ENGINES``), does it for a pixel window:
+the whole film, or the tile shard of a multi-device render
+(parallel/sharding.py). The preview's frames through the preview kernel
+are routed in integrator/render.py (``render_film_preview``).
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ def host_camera(cam):
 
 
 def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,
-                       spp: int) -> float:
+                       spp: int, stats: Optional[dict] = None) -> float:
     """Add the radiance sums of ``spp`` samples from ``sample_base`` of the
     pixels pix0 .. pix0+len(acc)-1 into ``acc`` [n_px, 3] in place, one
-    launch per ``mega_spp_batch`` samples -> the useful rays traced. While
+    call of ``mega_render`` per ``mega_spp_batch`` samples -> the useful
+    rays traced; nothing goes into ``stats``. While
     spans are recorded the launches' stamps are read after the rays' sync
     into the counters ``ops.mega.launch_us`` and ``ops.mega.tail_us``."""
     eye, rot = host_camera(cam)
@@ -64,10 +66,6 @@ def render_film_mega(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
                      stats: Optional[dict] = None) -> Film:
     """Accumulate cfg.spp samples through the megakernel -> Film.
     ``stats``, when given, receives ``rays``: the useful rays traced."""
-    if film is None:
-        film = Film.create(cfg.height, cfg.width, sd.device)
-    acc = film.accum.reshape(-1, 3).clone()
-    rays = render_window_mega(sd, cam, cfg, acc, 0, film.count, cfg.spp)
-    if stats is not None:
-        stats["rays"] = stats.get("rays", 0.0) + rays
-    return Film(acc.reshape(cfg.height, cfg.width, 3), film.count + cfg.spp)
+    from .render import render_film_window
+
+    return render_film_window(render_window_mega, sd, cam, cfg, film, stats)

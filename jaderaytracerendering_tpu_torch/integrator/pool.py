@@ -25,9 +25,10 @@ render equals the megakernel's and the scan engine's sample for sample;
 only the order of the sums within a pixel differs. The host reads the
 queue's counters once per iteration.
 
-A queue runs over a pixel window (``render_window_pool``): the whole
-film, or a tile shard of a multi-device render (parallel/sharding.py),
-which the JAX package gives as ``pixel_ids`` (ops/lanes.py).
+A queue runs over a pixel window (``render_window_pool``, the engine's
+window function in integrator/render.py ``ENGINES``): the whole film, or
+a tile shard of a multi-device render (parallel/sharding.py), which the
+JAX package gives as ``pixel_ids`` (ops/lanes.py).
 
 Not carried over, because they exist for the TPU: ``FILM_TILE`` (the
 whole film runs as one queue; spp is split only where ``npix * spp``
@@ -36,6 +37,7 @@ would reach 2^31), the 5-buffer packed carry and the [16, M] row tables.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 from ..core import camera as camera_mod
@@ -46,8 +48,8 @@ from ..utils.config import RenderConfig
 from ..utils.logging import count, span
 
 # lanes of the pool when the caller gives none (capped at npix * spp):
-# the fastest of 2^18 .. 2^21 at the main path on the H100 (PERF.md,
-# cli/pool_sweep.py)
+# the fastest of 2^18 .. 2^21 at the render CLI's defaults on the H100
+# (PERF.md §6, the pool sweep)
 POOL_LANES = 1 << 21
 MAX_ITERS = 1_000_000
 QUEUE_LIMIT = 2 ** 31 - 1  # samples of one queue (the kernels' int32 ids)
@@ -91,13 +93,15 @@ def run_pool(st: PoolState, steps=KERNELS, max_iters: int = MAX_ITERS) -> int:
 
 
 def render_window_pool(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,
-                       spp: int, pool_m: Optional[int] = None) -> tuple[float, int]:
+                       spp: int, stats: Optional[dict] = None,
+                       pool_m: Optional[int] = None) -> float:
     """Pool render of ``spp`` samples from ``sample_base`` of the pixels
     pix0 .. pix0+len(acc)-1 (one private queue; spp split only where the
     queue would reach 2^31 samples), their radiance sums added into
-    ``acc`` [n_px, 3] in place -> (useful rays, counted exactly; loop
-    iterations). ``pool_m`` lanes (default ``POOL_LANES``, capped at the
-    queue length)."""
+    ``acc`` [n_px, 3] in place -> the useful rays, counted exactly. The
+    loop iterations are added to ``stats["iterations"]`` when ``stats`` is
+    given. ``pool_m`` lanes (default ``POOL_LANES``, capped at the queue
+    length)."""
     n_px = acc.shape[0]
     eye, rot = camera_mod.camera_tensors(cam, sd.device)
     lanes = POOL_LANES if pool_m is None else int(pool_m)
@@ -112,7 +116,9 @@ def render_window_pool(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
         acc += st.film
         rays += int(st.cnt[C_RAYS])
         done += step
-    return float(rays), iters
+    if stats is not None:
+        stats["iterations"] = stats.get("iterations", 0) + iters
+    return float(rays)
 
 
 def render_film_pool(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
@@ -121,11 +127,7 @@ def render_film_pool(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     -> Film, through ``render_window_pool`` over the whole film. ``stats``,
     when given, receives ``rays`` (useful rays, counted exactly) and
     ``iterations``."""
-    if film is None:
-        film = Film.create(cfg.height, cfg.width, sd.device)
-    acc = film.accum.reshape(-1, 3).clone()
-    rays, iters = render_window_pool(sd, cam, cfg, acc, 0, film.count, cfg.spp, pool_m)
-    if stats is not None:
-        stats["rays"] = stats.get("rays", 0.0) + rays
-        stats["iterations"] = stats.get("iterations", 0) + iters
-    return Film(acc.reshape(cfg.height, cfg.width, 3), film.count + cfg.spp)
+    from .render import render_film_window
+
+    window = functools.partial(render_window_pool, pool_m=pool_m)
+    return render_film_window(window, sd, cam, cfg, film, stats)

@@ -1,10 +1,13 @@
 """Render orchestration: (pixel, sample) lanes -> Film -> display image.
 
-``render_film`` routes by engine: ``mega`` launches the CUDA megakernel
-(integrator/mega.py), ``pool`` runs the wavefront pool engine
-(integrator/pool.py: spawn, trace, front and resolve kernels), ``scan``
-runs the torch integrator (integrator/wavefront.py) over fixed-size
-chunks, its ray queries through the trace kernel. ``integrator="preview"``
+``render_film`` looks the engine up in ``ENGINES``, the one table of
+engines, and runs its window function over the whole film: ``mega``
+launches the CUDA megakernel (integrator/mega.py), ``pool`` runs the
+wavefront pool engine (integrator/pool.py: spawn, trace, front and
+resolve kernels), ``scan`` runs the torch integrator
+(integrator/wavefront.py) over fixed-size chunks, its ray queries through
+the trace kernel. The multi-device render (parallel/sharding.py) runs the
+same window functions over tile windows. ``integrator="preview"``
 renders the 2-bounce preview (``render_film_preview``): engine ``mega``
 through the preview kernel, any other through the torch preview
 integrator (integrator/preview.py) in chunks; its display frames go
@@ -14,7 +17,7 @@ wrapper runs its plain version.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ from ..ops import mega as megak
 from ..ops import postfx
 from ..utils.config import RenderConfig, check_traversal
 from ..utils.logging import span
-from . import wavefront
+from . import mega, pool, wavefront
 
 # lanes (pixels x samples) per plain-integrator call; bounds the memory
 # of the batched per-bounce traces
@@ -66,7 +69,6 @@ def render_batch(sd, eye, rot, pixel_ids: torch.Tensor, sample_base: int,
 
 
 def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
-                progress: Optional[Callable[[int, int], None]] = None,
                 stats: Optional[dict] = None) -> Film:
     """Accumulate cfg.spp samples into a Film on the scene's device.
 
@@ -77,53 +79,31 @@ def render_film(sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
     parent of the pool's iteration spans, and the request whose number
     the image's tone map carries."""
     with span("integrator.render.render_film", request=True):
-        return _render_film(sd, cam, cfg, film, progress, stats)
+        return _render_film(sd, cam, cfg, film, stats)
 
 
 def _render_film(sd, cam, cfg: RenderConfig, film: Optional[Film],
-                 progress: Optional[Callable[[int, int], None]],
                  stats: Optional[dict]) -> Film:
     check_traversal(cfg.traversal)
     if cfg.integrator == "preview":
-        film = render_film_preview(sd, cam, cfg, film)
-        if progress:
-            progress(cfg.spp, cfg.spp)
-        return film
+        return render_film_preview(sd, cam, cfg, film)
     if cfg.integrator != "full":
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
+    return render_film_window(window_fn(cfg.engine), sd, cam, cfg, film, stats)
+
+
+def render_film_window(window, sd, cam, cfg: RenderConfig, film: Optional[Film] = None,
+                       stats: Optional[dict] = None) -> Film:
+    """cfg.spp samples (``film.count ..``) of every pixel through the window
+    function ``window`` (``ENGINES``) over the whole film -> Film.
+    ``stats``, when given, receives ``rays`` and the window's own counts."""
     if film is None:
         film = Film.create(cfg.height, cfg.width, sd.device)
-    if cfg.engine == "mega":
-        from . import mega as mega_mod
-
-        film = mega_mod.render_film_mega(sd, cam, cfg, film, stats)
-        if progress:
-            progress(cfg.spp, cfg.spp)
-        return film
-    if cfg.engine == "pool":
-        from . import pool as pool_mod
-
-        film = pool_mod.render_film_pool(sd, cam, cfg, film, stats)
-        if progress:
-            progress(cfg.spp, cfg.spp)
-        return film
-    if cfg.engine != "scan":
-        raise ValueError(f"unknown engine {cfg.engine!r}")
-
-    eye, rot = camera_mod.camera_tensors(cam, sd.device)
-    sppb = max(1, min(cfg.spp_batch, cfg.spp))
-    accum = film.accum.reshape(-1, 3).clone()
-    rays = 0.0
-    done = 0
-    while done < cfg.spp:
-        step = min(sppb, cfg.spp - done)
-        rays += render_window(sd, eye, rot, accum, 0, film.count + done, cfg, step)
-        done += step
-        if progress:
-            progress(done, cfg.spp)
+    acc = film.accum.reshape(-1, 3).clone()
+    rays = window(sd, cam, cfg, acc, 0, film.count, cfg.spp, stats)
     if stats is not None:
         stats["rays"] = stats.get("rays", 0.0) + rays
-    return Film(accum.reshape(cfg.height, cfg.width, 3), film.count + done)
+    return Film(acc.reshape(cfg.height, cfg.width, 3), film.count + cfg.spp)
 
 
 def render_image(sd, cam, cfg: RenderConfig) -> np.ndarray:
@@ -157,24 +137,59 @@ def display_banded(accum: torch.Tensor, frame_idx: int, bands: int, spp: int,
                          split=(band + 1) * (npix // bands), count_hi=rot * spp)
 
 
-def render_window(sd, eye, rot, out: torch.Tensor, p0: int, sample_base: int,
-                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> float:
-    """The torch integrator of ``cfg`` over the pixels p0 .. p0+len(out)-1,
-    chunked by ``SCAN_LANES``: adds their radiance sums over ``sppb``
-    samples from ``sample_base`` into ``out`` [n, 3] in place -> the
-    useful rays traced (0 for the preview integrator, which counts none).
-    ``query`` as in ``render_batch``."""
-    n = out.shape[0]
+def render_ids(sd, eye, rot, ids: torch.Tensor, out: torch.Tensor, sample_base: int,
+               cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> float:
+    """The torch integrator of ``cfg`` over the pixel ids ``ids`` (int64,
+    on the scene's device), chunked by ``SCAN_LANES``: adds their radiance
+    sums over ``sppb`` samples from ``sample_base`` into ``out`` [n, 3] in
+    place -> the useful rays traced (0 for the preview integrator, which
+    counts none). ``query`` as in ``render_batch``."""
     chunk_px = max(1, SCAN_LANES // sppb)
     rays = 0.0
-    for c0 in range(0, n, chunk_px):
-        ids = torch.arange(p0 + c0, p0 + min(c0 + chunk_px, n), dtype=torch.int64,
-                           device=sd.device)
-        rad, n_rays = render_batch(sd, eye, rot, ids, sample_base, cfg, sppb, query=query)
-        out[c0:c0 + ids.shape[0]] += rad
+    for c0 in range(0, ids.shape[0], chunk_px):
+        rad, n_rays = render_batch(sd, eye, rot, ids[c0:c0 + chunk_px], sample_base, cfg, sppb,
+                                   query=query)
+        out[c0:c0 + rad.shape[0]] += rad
         if n_rays is not None:
             rays += float(n_rays.sum())
     return rays
+
+
+def render_window(sd, eye, rot, out: torch.Tensor, p0: int, sample_base: int,
+                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> float:
+    """``render_ids`` over the pixels p0 .. p0+len(out)-1."""
+    ids = torch.arange(p0, p0 + out.shape[0], dtype=torch.int64, device=sd.device)
+    return render_ids(sd, eye, rot, ids, out, sample_base, cfg, sppb, query=query)
+
+
+def render_window_scan(sd, cam, cfg: RenderConfig, acc: torch.Tensor, pix0: int,
+                       sample_base: int, spp: int, stats: Optional[dict] = None) -> float:
+    """The scan engine's window function (``ENGINES``): ``render_window``
+    in steps of ``cfg.spp_batch`` samples (the last one shorter) -> the
+    useful rays traced. It has no count of its own for ``stats``."""
+    eye, rot = camera_mod.camera_tensors(cam, sd.device)
+    sppb = max(1, cfg.spp_batch)
+    rays = 0.0
+    for done in range(0, spp, sppb):
+        rays += render_window(sd, eye, rot, acc, pix0, sample_base + done, cfg,
+                              min(sppb, spp - done))
+    return rays
+
+
+# The engines: cfg.engine -> its window function fn(sd, cam, cfg, acc, pix0,
+# sample_base, spp, stats=None) -> useful rays. It adds the radiance sums of
+# spp samples from sample_base of the pixels pix0 .. pix0+len(acc)-1 into acc
+# [n_px, 3] in place, and any count of its own into stats when given.
+ENGINES = {"mega": mega.render_window_mega, "pool": pool.render_window_pool,
+           "scan": render_window_scan}
+
+
+def window_fn(engine: str):
+    """The window function of ``engine`` (``ENGINES``); an unknown name
+    raises ``ValueError``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    return ENGINES[engine]
 
 
 def _preview_window(sd, cam, cfg: RenderConfig, out: torch.Tensor, p0: int,
@@ -185,9 +200,7 @@ def _preview_window(sd, cam, cfg: RenderConfig, out: torch.Tensor, p0: int,
     adds into ``out`` itself, any other through the torch preview
     integrator (``render_window``)."""
     if cfg.engine == "mega":
-        from . import mega as mega_mod
-
-        eye, rot = mega_mod.host_camera(cam)
+        eye, rot = mega.host_camera(cam)
         megak.render_preview_mega(sd, eye, rot, cfg, sample_base, sppb, out, p0)
     else:
         eye, rot = camera_mod.camera_tensors(cam, sd.device)
@@ -247,13 +260,11 @@ def _render_film_preview(sd, cam, cfg: RenderConfig, film: Optional[Film], displ
     if film is None:
         film = Film.create(cfg.height, cfg.width, sd.device)
     flat = film.accum.reshape(-1, 3).clone()
-    sppb = cfg.spp if cfg.engine == "mega" else max(1, min(cfg.spp_batch, cfg.spp))
-    done = 0
-    while done < cfg.spp:
-        step = min(sppb, cfg.spp - done)
-        _preview_window(sd, cam, cfg, flat, 0, film.count + done, step)
-        done += step
-    film = Film(flat.reshape(cfg.height, cfg.width, 3), film.count + done)
+    if cfg.engine == "mega":  # one launch of the preview kernel
+        _preview_window(sd, cam, cfg, flat, 0, film.count, cfg.spp)
+    else:  # the torch preview integrator in spp_batch steps
+        render_window_scan(sd, cam, cfg, flat, 0, film.count, cfg.spp)
+    film = Film(flat.reshape(cfg.height, cfg.width, 3), film.count + cfg.spp)
     if not display:
         return film
     return film, display_frame(film.accum, film.count, cfg.tonemap)

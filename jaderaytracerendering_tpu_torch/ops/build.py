@@ -40,11 +40,10 @@ def find_nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str, sources: list[str],
-                 src_dir: pathlib.Path = CSRC_DIR) -> pathlib.Path:
+def library_path(name: str, sources: list[str]) -> pathlib.Path:
     """``build/<name>-<hash>.so``, the hash over flags, sources and headers."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [src_dir / s for s in sources] + sorted(src_dir.glob("*.cuh")):
+    for p in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -62,18 +61,17 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def build_library(name: str, sources: list[str],
-                  src_dir: pathlib.Path = CSRC_DIR) -> pathlib.Path:
-    """Compile ``<src_dir>/<sources>`` (default ``csrc/``) into
-    ``build/<name>-<hash>.so`` unless that file exists; return its path."""
-    out = library_path(name, sources, src_dir)
+def build_library(name: str, sources: list[str]) -> pathlib.Path:
+    """Compile ``csrc/<sources>`` into ``build/<name>-<hash>.so`` unless
+    that file exists; return its path."""
+    out = library_path(name, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, pathlib.Path(s).stem + ".o") for s in sources]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src_dir / s)]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC_DIR / s)]
                         for s, o in zip(sources, objs)])
         lib = os.path.join(tmp, "lib.so")
         log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -83,6 +81,5 @@ def build_library(name: str, sources: list[str],
     return out
 
 
-def load_library(name: str, sources: list[str],
-                 src_dir: pathlib.Path = CSRC_DIR) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(name, sources, src_dir)))
+def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library(name, sources)))

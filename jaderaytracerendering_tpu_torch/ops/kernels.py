@@ -75,7 +75,6 @@ def library() -> ctypes.CDLL:
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {  # entry point of csrc/*.cu -> its ctypes argument types; each returns int
     "mega_render": [_vp, _vp, _ci, _ci, _vp, _ci, _vp, _vp, _vp, _vp],
-    "mega_chunk": [],
     "preview_render": [_vp, _vp, _ci, _ci, _ci, _vp, _vp],
     "postfx": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _ci, _cf, _cf, _ci, _vp],
     "spawn_scratch_words": [_ci],

@@ -9,11 +9,10 @@ scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
 counts kernel launches, so a caller can show that a run went through the
 kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's.
 
-The megakernel's work items are (pixel, chunk of ``chunk`` samples)
-pairs, ``chunk`` the library's ``mega_chunk()`` (``MEGA_CHUNK`` in
-csrc/mega.cu); each item leaves a float4 partial in a scratch buffer that
-the fold kernel sums per pixel. ``launch_windows`` splits a call into
-launches of at most ``MAX_ITEMS`` items, which bounds the scratch.
+The megakernel's work items are (pixel, sample) pairs, ``spp`` a pixel;
+each item leaves a float4 partial in a scratch buffer that the fold
+kernel sums per pixel in sample order. ``launch_windows`` splits a call
+into launches of at most ``MAX_ITEMS`` items, which bounds the scratch.
 """
 
 from __future__ import annotations
@@ -31,24 +30,20 @@ MAX_ITEMS = 1 << 26  # work items of one launch: 1 GiB of float4 partials
 _NEVER = (1 << 63) - 1  # a stamp's start before atomicMin
 
 
-def n_chunks(spp: int, chunk: int) -> int:
-    """K: the work items of one pixel, ceil(spp / chunk) (0 for no samples)."""
-    return max(0, -(-int(spp) // int(chunk)))
-
-
-def launch_windows(n_px: int, spp: int, chunk: int) -> list[tuple[int, int]]:
+def launch_windows(n_px: int, spp: int) -> list[tuple[int, int]]:
     """(first slot, slots) of each launch of a window of ``n_px`` slots: as
-    many slots as ``MAX_ITEMS`` items hold (at least one), the last window
-    shorter. A pixel's sum does not depend on the launch that holds it."""
-    per = max(1, MAX_ITEMS // max(1, n_chunks(spp, chunk)))
+    many slots as ``MAX_ITEMS`` items (``spp`` a slot) hold, at least one,
+    the last window shorter. A pixel's sum does not depend on the launch
+    that holds it."""
+    per = max(1, MAX_ITEMS // max(1, int(spp)))
     return [(a, min(per, n_px - a)) for a in range(0, n_px, per)]
 
 
-def scratch_shape(n_px: int, spp: int, chunk: int) -> tuple[int, int]:
+def scratch_shape(n_px: int, spp: int) -> tuple[int, int]:
     """The partials' shape, [items of the largest launch, 4] f32 (one
     float4 an item: three radiance sums, the useful rays' int bits)."""
-    wins = launch_windows(n_px, spp, chunk)
-    return (max((n for _, n in wins), default=0) * n_chunks(spp, chunk), 4)
+    wins = launch_windows(n_px, spp)
+    return (max((n for _, n in wins), default=0) * max(0, int(spp)), 4)
 
 
 def _window(cfg, pix0: int, n_px) -> int:
@@ -84,25 +79,22 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
 
 
 def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int, spp: int,
-                pix0: int = 0, n_px: int | None = None, stamps: list | None = None,
-                lib: ctypes.CDLL | None = None) -> torch.Tensor:
+                pix0: int = 0, n_px: int | None = None, stamps: list | None = None
+                ) -> torch.Tensor:
     """Render ``spp`` samples of the pixel window pix0 .. pix0+n_px-1 (the
     whole film by default) -> [4, n_px] f32 (radiance sums, useful rays),
     column j for pixel pix0 + j. ``eye`` [3] and ``rot`` [4, 4] are the
     camera. ``stamps``, a list, receives one int64 [3] device tensor a
-    launch (start, dry counter, end: %globaltimer ns; ``count_stamps``).
-    ``lib``: the library to launch (default this tree's, bound by
-    ``kernels.bind``)."""
+    launch (start, dry counter, end: %globaltimer ns; ``count_stamps``)."""
     if sd.device.type == "cpu":
         return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px)
     n_px = _window(cfg, pix0, n_px)
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
     r = kernels.render_args(eye, rot, cfg, sample_base, spp)
-    lib = kernels.library() if lib is None else lib
-    chunk = lib.mega_chunk()
+    lib = kernels.library()
     out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
-    wins = launch_windows(n_px, spp, chunk)
-    part = torch.empty(scratch_shape(n_px, spp, chunk), dtype=torch.float32, device=sd.device)
+    wins = launch_windows(n_px, spp)
+    part = torch.empty(scratch_shape(n_px, spp), dtype=torch.float32, device=sd.device)
     next_item = torch.zeros(len(wins), dtype=torch.int32, device=sd.device)  # work counters
     for i, (a, n) in enumerate(wins):
         st = None

@@ -6,8 +6,8 @@ device, and the mesh is an explicit ``[tile, spp]`` grid of ranks:
 
 - **film tiles**: tile rank t renders the pixel window [t * shard_px,
   min((t + 1) * shard_px, npix)), shard_px = ceil(npix / n_tile), with no
-  communication (the megakernel and the pool take the window directly,
-  the scan engine renders its pixel ids);
+  communication, through the engine's window function
+  (integrator/render.py ``ENGINES``);
 - **samples**: spp rank s renders the same window at another sample
   offset, and the sums are reduced over the ranks of the tile row.
 
@@ -63,8 +63,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core import camera as camera_mod
 from ..core.film import Film
+from ..integrator import render
 from ..utils import logging
 from ..utils.config import RenderConfig, check_traversal
 
@@ -345,21 +345,6 @@ def tile_imbalance_pct(window_ms: Sequence[float]) -> float:
 
 # ---- sharded renders -------------------------------------------------------
 
-def _render_ids(sd, eye, rot, ids: torch.Tensor, out: torch.Tensor, sample_base: int,
-                cfg: RenderConfig, sppb: int) -> float:
-    """The scan engine over arbitrary pixel ids, chunked as
-    ``render.render_window``: adds the sums into ``out`` -> useful rays."""
-    from ..integrator.render import SCAN_LANES, render_batch
-
-    chunk = max(1, SCAN_LANES // sppb)
-    rays = 0.0
-    for c0 in range(0, ids.shape[0], chunk):
-        rad, n = render_batch(sd, eye, rot, ids[c0:c0 + chunk], sample_base, cfg, sppb)
-        out[c0:c0 + rad.shape[0]] += rad
-        rays += float(n.sum())
-    return rays
-
-
 def render_batch_sharded(sd, eye, rot, pixel_ids, sample_base: int, cfg: RenderConfig,
                          sppb: int, mesh: Mesh) -> torch.Tensor:
     """One sharded render step: ``pixel_ids`` split over 'tile' (its length
@@ -374,7 +359,7 @@ def render_batch_sharded(sd, eye, rot, pixel_ids, sample_base: int, cfg: RenderC
     t, s = mesh.coords
     ids = pixel_ids[t * k:(t + 1) * k].to(device=sd.device, dtype=torch.int64)
     out = torch.zeros((k, 3), dtype=torch.float32, device=sd.device)
-    _render_ids(sd, eye, rot, ids, out, int(sample_base) + s * sppb, cfg, sppb)
+    render.render_ids(sd, eye, rot, ids, out, int(sample_base) + s * sppb, cfg, sppb)
     return _all_reduce(out, mesh.spp_group)
 
 
@@ -413,14 +398,25 @@ def _film_from_window(acc: torch.Tensor, shard: int, cfg: RenderConfig, mesh: Me
     return gather_film(acc, mesh, clock)[:npix].reshape(cfg.height, cfg.width, 3)
 
 
-def _render_film_windows(window_fn, sd, cam, cfg: RenderConfig, mesh: Mesh,
-                         film: Optional[Film], stats: Optional[dict]) -> Film:
-    """A window engine over the mesh: spp rank s renders cfg.spp / n_spp
-    samples from ``film.count + s * spp_local`` of its tile window through
-    ``window_fn(sd, cam, cfg, acc, pix0, sample_base, spp) -> rays``; the
-    new sums are reduced over 'spp', added to the film's window and
-    gathered."""
+def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
+                            film: Optional[Film] = None,
+                            stats: Optional[dict] = None) -> Film:
+    """The film over the mesh, film tiles over 'tile' and samples over
+    'spp': spp rank s renders cfg.spp / n_spp samples from ``film.count +
+    s * cfg.spp / n_spp`` of its tile window through the engine's window
+    function (``render.window_fn``); the new sums are reduced over 'spp',
+    added to the film's window and gathered. Returns the full film on every
+    rank. Raises ``ValueError`` when cfg.spp does not divide by the spp
+    axis, for an unknown engine, and for any integrator but 'full' (the
+    JAX function renders NEE on its scan route whatever ``cfg.integrator``
+    asks). ``stats``, when given, receives ``rays`` (the mesh's useful
+    rays), ``window_ms`` (each rank's render of its tile window, by global
+    rank: device time on the card, the host clock on the CPU), this rank's
+    ``allreduce_ms``/``allreduce_calls``/``allreduce_bytes`` (the film's
+    all_reduce calls) and ``backend``. Every rank of the group passes
+    ``stats`` or none does: it adds one collective."""
     _check(cfg, mesh)
+    window = render.window_fn(cfg.engine)
     if film is None:
         film = Film.create(cfg.height, cfg.width, sd.device)
     n_spp = mesh.shape["spp"]
@@ -432,93 +428,15 @@ def _render_film_windows(window_fn, sd, cam, cfg: RenderConfig, mesh: Mesh,
     if n_spp == 1:  # as the single-device engine: the samples added to the film in order
         acc = win.clone()
         with _window_span(timer):
-            rays = window_fn(sd, cam, cfg, acc, p0, film.count, cfg.spp)
+            rays = window(sd, cam, cfg, acc, p0, film.count, cfg.spp)
     else:
         new = torch.zeros_like(win)
         with _window_span(timer):
-            rays = window_fn(sd, cam, cfg, new, p0, film.count + s * spp_local, spp_local)
+            rays = window(sd, cam, cfg, new, p0, film.count + s * spp_local, spp_local)
         acc = win + _all_reduce(new, mesh.spp_group, clock)
     accum = _film_from_window(acc, shard, cfg, mesh, clock)
     _finish_stats(stats, rays, clock, timer, sd.device)
     return Film(accum, film.count + cfg.spp)
-
-
-def render_film_mega_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
-                                 film: Optional[Film] = None,
-                                 stats: Optional[dict] = None) -> Film:
-    """The megakernel over the mesh: each tile rank renders its window
-    (``integrator/mega.render_window_mega``), spp ranks disjoint sample
-    ranges of it, reduced over 'spp'."""
-    from ..integrator import mega as mega_mod
-
-    return _render_film_windows(mega_mod.render_window_mega, sd, cam, cfg, mesh, film, stats)
-
-
-def _pool_window(sd, cam, cfg, acc, pix0, sample_base, spp) -> float:
-    from ..integrator import pool as pool_mod
-
-    return pool_mod.render_window_pool(sd, cam, cfg, acc, pix0, sample_base, spp)[0]
-
-
-def _render_film_scan(sd, cam, cfg: RenderConfig, mesh: Mesh, film: Optional[Film],
-                      stats: Optional[dict]) -> Film:
-    """The scan engine over the mesh, in passes of n_spp * sppb samples,
-    the last pass clamped so that exactly cfg.spp samples are rendered."""
-    from ..integrator.render import render_window
-
-    _check(cfg, mesh)
-    if film is None:
-        film = Film.create(cfg.height, cfg.width, sd.device)
-    n_spp = mesh.shape["spp"]
-    _, s = mesh.coords
-    shard, p0, n_px = _window(cfg.width * cfg.height, mesh)
-    eye, rot = camera_mod.camera_tensors(cam, sd.device)
-    clock, timer = _Clock(sd.device), _Clock(sd.device)
-    acc = film.accum.reshape(-1, 3)[p0:p0 + n_px].clone()
-    sppb = max(1, min(cfg.spp_batch, cfg.spp // n_spp))
-    rays = 0.0
-    done = 0
-    while done < cfg.spp:
-        # the rest stays a multiple of n_spp, so the clamp never reaches 0
-        step = min(sppb, (cfg.spp - done) // n_spp)
-        base = film.count + done + s * step
-        if n_spp == 1:
-            with _window_span(timer):
-                rays += render_window(sd, eye, rot, acc, p0, base, cfg, step)
-        else:
-            new = torch.zeros_like(acc)
-            with _window_span(timer):
-                rays += render_window(sd, eye, rot, new, p0, base, cfg, step)
-            acc += _all_reduce(new, mesh.spp_group, clock)
-        done += step * n_spp
-    accum = _film_from_window(acc, shard, cfg, mesh, clock)
-    _finish_stats(stats, rays, clock, timer, sd.device)
-    return Film(accum, film.count + done)
-
-
-def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
-                            film: Optional[Film] = None,
-                            stats: Optional[dict] = None) -> Film:
-    """The film over the mesh, film tiles over 'tile' and samples over
-    'spp', routed by engine: ``mega`` (``render_film_mega_distributed``),
-    ``pool`` (a private queue a tile window) or ``scan`` (passes of n_spp *
-    sppb samples). Returns the full film on every rank. Raises
-    ``ValueError`` when cfg.spp does not divide by the spp axis, and for
-    any integrator but 'full' (the JAX function renders NEE on its scan
-    route whatever ``cfg.integrator`` asks). ``stats``, when given,
-    receives ``rays`` (the mesh's useful rays), ``window_ms`` (each rank's
-    render of its tile window, by global rank: device time on the card,
-    the host clock on the CPU), this rank's
-    ``allreduce_ms``/``allreduce_calls``/``allreduce_bytes`` (the film's
-    all_reduce calls) and ``backend``. Every rank of the group passes
-    ``stats`` or none does: it adds one collective."""
-    if cfg.engine == "mega":
-        return render_film_mega_distributed(sd, cam, cfg, mesh, film, stats)
-    if cfg.engine == "pool":
-        return _render_film_windows(_pool_window, sd, cam, cfg, mesh, film, stats)
-    if cfg.engine == "scan":
-        return _render_film_scan(sd, cam, cfg, mesh, film, stats)
-    raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
 # ---- ranks on this node ----------------------------------------------------

@@ -598,10 +598,9 @@ def test_mega_call_split_into_launches_is_bit_equal(jade_cuda, monkeypatch, spp)
     cfg = RenderConfig(width=64, height=48, spp=spp, max_depth=5)
     eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
     whole = megak.mega_render(sd, eye, rot, cfg, 3, spp)
-    chunk = kernels.library().mega_chunk()
     monkeypatch.setattr(megak, "MAX_ITEMS", 4096)
     for pix0, n_px in ((0, 64 * 48), (1001, 1500)):
-        wins = megak.launch_windows(n_px, spp, chunk)
+        wins = megak.launch_windows(n_px, spp)
         assert len(wins) > 2
         kernels.reset_launches()
         stamps = []
@@ -612,20 +611,19 @@ def test_mega_call_split_into_launches_is_bit_equal(jade_cuda, monkeypatch, spp)
 
 
 @pytest.mark.parametrize("spp", [8, 7])
-def test_mega_launch_is_the_ascending_fold_of_its_chunks(jade_cuda, spp):
+def test_mega_launch_is_the_ascending_fold_of_its_samples(jade_cuda, spp):
     """One launch of ``spp`` samples equals, bit for bit, the ascending f32
-    sum from zero of launches of MEGA_CHUNK samples at sample_base + j x
-    MEGA_CHUNK (the last one shorter), each one item a pixel; useful rays
-    equal. So the fold adds each pixel's chunks in sample order."""
+    sum from zero of launches of one sample at sample_base + j, each one
+    item a pixel; useful rays equal. So the fold adds each pixel's samples
+    in sample order."""
     ds, sd = jade_cuda
     cfg = RenderConfig(width=48, height=40, spp=spp, max_depth=5)
     eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
-    chunk = kernels.library().mega_chunk()
     whole = megak.mega_render(sd, eye, rot, cfg, 5, spp)
     acc = torch.zeros((3, 48 * 40), device="cuda")
     rays = torch.zeros(48 * 40, device="cuda")
-    for j in range(0, spp, chunk):
-        part = megak.mega_render(sd, eye, rot, cfg, 5 + j, min(chunk, spp - j))
+    for j in range(spp):
+        part = megak.mega_render(sd, eye, rot, cfg, 5 + j, 1)
         acc = acc + part[:3]
         rays = rays + part[3]
     assert torch.equal(whole[:3], acc) and torch.equal(whole[3], rays)
@@ -685,8 +683,10 @@ def test_pool_window_matches_the_mega_window(jade_cuda):
     for pix0, n_px in WINDOWS:
         kernels.reset_launches()
         acc_p = torch.zeros((n_px, 3), device="cuda")
-        rays_p, _ = tpool.render_window_pool(sd, ds.camera, cfg, acc_p, pix0, 4, cfg.spp,
-                                             pool_m=700)
+        stats = {}
+        rays_p = tpool.render_window_pool(sd, ds.camera, cfg, acc_p, pix0, 4, cfg.spp, stats,
+                                          pool_m=700)
+        assert stats["iterations"] > 0
         assert min(kernels.LAUNCHES[k] for k in ("spawn_primary", "trace_segments",
                                                  "front_bounce", "resolve_bounce")) > 0
         acc_m = torch.zeros((n_px, 3), device="cuda")

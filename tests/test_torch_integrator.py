@@ -136,6 +136,30 @@ def test_unported_engines_raise():
             trender.render_film(st, ds.camera, TConfig(**SIZE, **bad))
 
 
+def test_one_engine_table():
+    """The engines are the keys of ``render.ENGINES``, each a window
+    function: the CLIs' ``--engine`` choices read them, and a name outside
+    them raises ``ValueError`` from ``render_film`` and from the mesh
+    render."""
+    import argparse
+
+    from jaderaytracerendering_tpu_torch.cli import common
+    from jaderaytracerendering_tpu_torch.parallel import sharding as tsh
+
+    assert set(trender.ENGINES) == {"mega", "pool", "scan"}
+    assert all(callable(fn) for fn in trender.ENGINES.values())
+    ap = argparse.ArgumentParser()
+    common.add_common_args(ap)
+    engine = next(a for a in ap._actions if a.dest == "engine")
+    assert list(engine.choices) == list(trender.ENGINES)
+    ds = tdemo.tiny_scene()
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
+    for render in (lambda c: trender.render_film(st, ds.camera, c),
+                   lambda c: tsh.render_film_distributed(st, ds.camera, c, tsh.make_mesh())):
+        with pytest.raises(ValueError, match="unknown engine 'wavefront'"):
+            render(TConfig(**SIZE, engine="wavefront"))
+
+
 def test_assemble_defaults_to_cuda(monkeypatch):
     """The scene goes to the card unless the caller asks for the CPU; no
     CUDA device is an error, never a quiet fall back."""

@@ -124,34 +124,28 @@ def test_kernel_struct_matches_scene_tables():
     assert fields("PoolArgs") == [f[0] for f in kernels.PoolArgs._fields_]
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 4, 8])
-def test_work_items_windows_and_scratch(chunk):
-    """The megakernel's host arithmetic: K = ceil(spp / chunk) items a pixel
-    (the last chunk shorter where chunk does not divide spp), launches of
-    at most MAX_ITEMS items that cover the window once and in order, and a
+@pytest.mark.parametrize("spp", [1, 3, 7, 8, 63, 64, 65])
+def test_work_items_windows_and_scratch(spp):
+    """The megakernel's host arithmetic: spp items a pixel, launches of at
+    most MAX_ITEMS items that cover the window once and in order, and a
     scratch of one float4 an item of the largest launch."""
-    for spp in (1, 3, 7, 8, 63, 64, 65):
-        k = megak.n_chunks(spp, chunk)
-        assert (k - 1) * chunk < spp <= k * chunk
-        for n_px in (1, 5, 4096, 3 * (1 << 20) + 17):
-            wins = megak.launch_windows(n_px, spp, chunk)
-            assert wins[0][0] == 0 and sum(n for _, n in wins) == n_px
-            assert all(a + n == b for (a, n), (b, _) in zip(wins, wins[1:]))
-            assert max(n for _, n in wins) * k <= megak.MAX_ITEMS
-            assert len(wins) == 1 or wins[0][1] * k > megak.MAX_ITEMS - k
-            assert megak.scratch_shape(n_px, spp, chunk) == (wins[0][1] * k, 4)
-    assert megak.n_chunks(0, chunk) == 0 and megak.scratch_shape(9, 0, chunk) == (0, 4)
-    # 7 spp: chunks of 1, 2, 4 and 8 samples make 7, 4, 2 and 1 items a pixel
-    assert megak.n_chunks(7, chunk) == {1: 7, 2: 4, 4: 2, 8: 1}[chunk]
+    for n_px in (1, 5, 4096, 3 * (1 << 20) + 17):
+        wins = megak.launch_windows(n_px, spp)
+        assert wins[0][0] == 0 and sum(n for _, n in wins) == n_px
+        assert all(a + n == b for (a, n), (b, _) in zip(wins, wins[1:]))
+        assert max(n for _, n in wins) * spp <= megak.MAX_ITEMS
+        assert len(wins) == 1 or wins[0][1] * spp > megak.MAX_ITEMS - spp
+        assert megak.scratch_shape(n_px, spp) == (wins[0][1] * spp, 4)
+    assert megak.scratch_shape(9, 0) == (0, 4)
 
 
 def test_the_main_path_launch_is_one_launch_of_one_gib_of_scratch():
-    """1024^2 pixels x 64 spp in chunks of 1 sample: 2^26 items, one launch,
+    """1024^2 pixels x 64 spp, one sample an item: 2^26 items, one launch,
     16 bytes of partials an item; a larger film splits into launches."""
-    assert megak.launch_windows(1 << 20, 64, 1) == [(0, 1 << 20)]
-    assert megak.scratch_shape(1 << 20, 64, 1) == (1 << 26, 4)
-    assert megak.launch_windows(1920 * 1080, 64, 1) == [(0, 1 << 20),
-                                                        (1 << 20, 1920 * 1080 - (1 << 20))]
+    assert megak.launch_windows(1 << 20, 64) == [(0, 1 << 20)]
+    assert megak.scratch_shape(1 << 20, 64) == (1 << 26, 4)
+    assert megak.launch_windows(1920 * 1080, 64) == [(0, 1 << 20),
+                                                     (1 << 20, 1920 * 1080 - (1 << 20))]
 
 
 def test_count_stamps_adds_launch_and_tail_us():
@@ -177,12 +171,10 @@ def test_count_stamps_adds_launch_and_tail_us():
 
 def test_bind_refuses_a_library_without_the_entry_point():
     """``kernels.bind`` types the entry points it is given and names the
-    one a library lacks (a ``mega.cu`` build from before the work items
-    has no ``mega_chunk``) as it loads, not at the first launch."""
+    one a library lacks as it loads, not at the first launch."""
     import ctypes
 
     libc = ctypes.CDLL(None)
-    with pytest.raises(AttributeError, match="'mega_chunk'"):
-        kernels.bind(libc, ("mega_chunk",))
-    assert "mega_fold" in kernels.LAUNCHES and set(kernels.SIGNATURES) >= {"mega_render",
-                                                                          "mega_chunk"}
+    with pytest.raises(AttributeError, match="'mega_render'"):
+        kernels.bind(libc, ("mega_render",))
+    assert "mega_fold" in kernels.LAUNCHES and "mega_render" in kernels.SIGNATURES

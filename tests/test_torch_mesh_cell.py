@@ -136,13 +136,12 @@ def test_spans_are_recorded_on_rank_0_under_the_profiler(ranks, key, profiled):
         return
     names = [n for n, _ in r0["spans"] if n.startswith("parallel.")]
     n_spp = 2 if key.endswith("x2") else 1
-    # mega and pool render their window once an image; scan once a pass of spp_batch
-    passes = SIZE["spp"] // (SIZE["spp_batch"] * n_spp) if key.startswith("scan") else 1
-    assert names.count("parallel.sharding.window") == PROFILED_IMAGES * passes
-    # the film's gather, and on a (2, 2) mesh the spp reduction of each pass
-    reduces = 1 + (passes if n_spp > 1 else 0)
+    # every engine renders its window once an image (the scan in spp_batch steps)
+    assert names.count("parallel.sharding.window") == PROFILED_IMAGES
+    # the film's gather, and on a (2, 2) mesh the spp reduction
+    reduces = 1 + (n_spp > 1)
     assert names.count("parallel.sharding.all_reduce") == PROFILED_IMAGES * reduces
-    assert len(names) == PROFILED_IMAGES * (passes + reduces)
+    assert len(names) == PROFILED_IMAGES * (1 + reduces)
     # the spans sit at the top (no render span opens around them here)
     assert all(parent == -1 for n, parent in r0["spans"] if n.startswith("parallel."))
 

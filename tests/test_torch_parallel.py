@@ -8,8 +8,9 @@ tests' setup (tests/test_parallel.py): ``demo.tiny_scene()``, 8x8, depth
 2, traversal 'bvh', both packages' scenes built by the NumPy SAH builder.
 It renders the meshes (4, 1), (2, 2) and (1, 4) through the engines
 scan, pool and mega at 4 spp (spp_batch 2), a resumed render (4 spp, then
-4 more), the scan's clamped last pass (6 spp over an spp axis of 2) and
-a spp that does not divide by the spp axis, and saves every rank's films.
+4 more), the scan at 6 spp over an spp axis of 2 (3 samples a rank, in
+spp_batch steps of 2 and 1) and a spp that does not divide by the spp
+axis, and saves every rank's films.
 
 Tolerances: bit for bit against the single-device film of the same
 engine on tile-only meshes for scan and mega (each pixel's samples are
@@ -92,7 +93,7 @@ for shape in json.loads(sys.argv[6]):
 mesh = sh.make_mesh((2, 2))
 first = run("resume_first", mesh, cfg.replace(engine="scan"))
 run("resume", mesh, cfg.replace(engine="scan"), film=first)
-run("clamp6", mesh, cfg.replace(engine="scan", spp=6))
+run("uneven6", mesh, cfg.replace(engine="scan", spp=6))
 try:
     sh.render_film_distributed(sd, ds.camera, cfg.replace(spp=6), sh.make_mesh((1, 4)))
     meta["spp6_over_4"] = "rendered"
@@ -231,10 +232,12 @@ def test_resume_equals_a_straight_render(runs, single):
                                rtol=RTOL, atol=ATOL)
 
 
-def test_scan_clamps_its_last_pass(runs, single):
+def test_scan_over_the_spp_axis_in_uneven_batch_steps(runs, single):
+    """6 spp over an spp axis of 2: each spp rank renders its 3 samples in
+    steps of 2 and 1 (spp_batch 2); the film equals one device's."""
     films, meta = runs[0][0]
-    assert meta["clamp6"]["count"] == 6
-    np.testing.assert_allclose(films["clamp6"] / 6, single["scan", 6][0] / 6,
+    assert meta["uneven6"]["count"] == 6
+    np.testing.assert_allclose(films["uneven6"] / 6, single["scan", 6][0] / 6,
                                rtol=RTOL, atol=ATOL)
 
 

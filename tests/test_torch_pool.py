@@ -141,10 +141,11 @@ def test_pool_window_equals_the_whole_film(scenes, pix0, n_px):
     cfg = TConfig(**SIZE)
     whole = tpool.render_film_pool(st, t.camera, cfg, pool_m=48).accum.reshape(-1, 3)
     acc = torch.zeros((n_px, 3))
-    rays, iters = tpool.render_window_pool(st, t.camera, cfg, acc, pix0, 0, cfg.spp, pool_m=48)
+    stats = {}
+    rays = tpool.render_window_pool(st, t.camera, cfg, acc, pix0, 0, cfg.spp, stats, pool_m=48)
     acc_m = torch.zeros((n_px, 3))
     rays_m = tmega.render_window_mega(st, t.camera, cfg, acc_m, pix0, 0, cfg.spp)
     scale = float(whole.abs().max())
     for want in (whole[pix0:pix0 + n_px], acc_m):
         np.testing.assert_allclose(acc.numpy(), want.numpy(), rtol=1e-5, atol=1e-6 * scale)
-    assert rays == rays_m and iters > 0
+    assert rays == rays_m and stats["iterations"] > 0
