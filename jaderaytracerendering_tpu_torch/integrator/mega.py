@@ -1,12 +1,15 @@
-"""Megakernel render engine: the film in one kernel launch per
-``mega_spp_batch`` samples.
+"""Megakernel render engine: the film in one ``mega_render`` call for all
+of its samples.
 
 The JAX package's integrator/mega.py ``render_film_mega`` without its TPU
 eligibility and VMEM-budget logic and table packing: any scene on the
-card runs here. Each launch renders samples ``film.count + done ..`` of
-every pixel (ops/mega.py ``mega_render``) and its radiance sums are
-folded into the Film. ``render_window_mega``, the engine's window
-function (integrator/render.py ``ENGINES``), does it for a pixel window:
+card runs here. One call renders samples ``film.count ..`` of every pixel
+(ops/mega.py ``mega_render``, which splits it into launches of pixel
+windows of at most ``MAX_ITEMS`` work items), and its radiance sums are
+folded into the Film. ``cfg.mega_spp_batch`` is not read: each launch
+ends in the tail of its longest paths, so only the scratch's bound splits
+a window's work. ``render_window_mega``, the engine's window function
+(integrator/render.py ``ENGINES``), does it for a pixel window:
 the whole film, or the tile shard of a multi-device render
 (parallel/sharding.py). The preview's frames through the preview kernel
 are routed in integrator/render.py (``render_film_preview``).
@@ -40,8 +43,9 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
                        spp: int, stats: Optional[dict] = None) -> float:
     """Add the radiance sums of ``spp`` samples from ``sample_base`` of the
     pixels pix0 .. pix0+len(acc)-1 into ``acc`` [n_px, 3] in place, one
-    call of ``mega_render`` per ``mega_spp_batch`` samples -> the useful
-    rays traced; nothing goes into ``stats``. While
+    call of ``mega_render`` for all of them (in steps of ``MAX_ITEMS``
+    samples only where one pixel's items alone would overflow the
+    scratch) -> the useful rays traced; nothing goes into ``stats``. While
     spans are recorded the launches' stamps are read after the rays' sync
     into the counters ``ops.mega.launch_us`` and ``ops.mega.tail_us``."""
     eye, rot = host_camera(cam)
@@ -50,7 +54,7 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
     stamps = [] if recording() else None
     done = 0
     while done < spp and n_px:
-        step = min(max(1, cfg.mega_spp_batch), spp - done)
+        step = min(megak.MAX_ITEMS, spp - done)
         out = megak.mega_render(sd, eye, rot, cfg, sample_base + done, step, pix0, n_px,
                                 stamps=stamps)
         acc += out[0:3].T

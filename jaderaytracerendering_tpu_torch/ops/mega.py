@@ -7,7 +7,9 @@
 for a scene on a CUDA device and runs its plain PyTorch version for a
 scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
 counts kernel launches, so a caller can show that a run went through the
-kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's.
+kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's;
+while spans are recorded the counter ``ops.mega.launches`` counts the
+megakernel's launches too.
 
 The megakernel's work items are (pixel, sample) pairs, ``spp`` a pixel;
 each item leaves a float4 partial in a scratch buffer that the fold
@@ -109,6 +111,7 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
         kernels.check_rc(rc, "mega_render")
         LAUNCHES["mega_render"] += int(spp > 0)  # no samples: no items, the fold alone
         LAUNCHES["mega_fold"] += 1
+        logging.count("ops.mega.launches", int(spp > 0))
     return out
 
 

@@ -52,7 +52,7 @@ class RenderConfig:
     preview_bands: int = 1
     engine: str = "mega"              # 'mega' (CUDA megakernel) | 'pool'
     #                                   (wavefront kernels) | 'scan' (torch)
-    mega_spp_batch: int = 64          # megakernel: max samples per launch
+    mega_spp_batch: int = 64          # ignored (one megakernel call a window's samples)
     mega_gather: str = "auto"         # ignored (TPU)
     mega_redistribute: bool = True    # ignored (TPU)
     mega_prologue: bool = True        # ignored (TPU)

@@ -10,7 +10,10 @@ the megakernel's useful rays exact and its radiance sums per pixel
 within MEGA_RTOL * |plain| + MEGA_ATOL_FRAC * max|plain| (it composites
 each path forward, the plain version folds the (dir, rate) stack
 backward as the reference does: the same sum, rounded in another order,
-on paths of three or more terms); radiance sums of the other kernels per
+on paths of three or more terms); a window's samples in one launch
+and the same samples as 64-sample launches added in turn each within
+the recursive-summation bound of their exact sum (two f32 sums of one
+set of terms in two orders); radiance sums of the other kernels per
 pixel atol = 1e-4 * max, rtol = 1e-3 (they match the plain versions to a
 few ulps; the pool's film adds are float atomics, so its sums within a
 pixel change order); lane integers and counters of one pool step exact,
@@ -276,13 +279,14 @@ def test_mega_render_matches_plain_at_another_bvh_depth(jade_cuda):
 
 
 def test_render_film_mega_on_cuda_uses_the_kernel(jade_cuda):
+    """One launch for the film's 3 samples: ``mega_spp_batch`` is not read."""
     ds, sd = jade_cuda
     kernels.reset_launches()
     stats = {}
     film = trender.render_film(sd, ds.camera,
                                RenderConfig(width=16, height=16, spp=3,
                                             mega_spp_batch=2), stats=stats)
-    assert kernels.LAUNCHES["mega_render"] == 2 and film.count == 3
+    assert kernels.LAUNCHES["mega_render"] == 1 and film.count == 3
     assert bool(torch.isfinite(film.accum).all()) and stats["rays"] > 0
 
 
@@ -668,8 +672,95 @@ def test_mega_stamps_count_the_launch_and_its_tail(jade_cuda):
         trender.render_film(sd, ds.camera, cfg)
         got = dict(tlog.counters())
     tlog.reset()
-    assert kernels.LAUNCHES["mega_render"] == kernels.LAUNCHES["mega_fold"] == 2
+    assert kernels.LAUNCHES["mega_render"] == kernels.LAUNCHES["mega_fold"] == 1
+    assert got["ops.mega.launches"] == 1
     assert 0 < got["ops.mega.tail_us"] <= got["ops.mega.launch_us"]
+
+
+def _mega_window(sd, cam, cfg, pix0, n_px, sample_base, spp):
+    """``render_window_mega`` into a fresh window -> (sums [n_px, 3], rays)."""
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+
+    acc = torch.zeros((n_px, 3), device="cuda")
+    return acc, tmega.render_window_mega(sd, cam, cfg, acc, pix0, sample_base, spp)
+
+
+def _calls_of_64(sd, cam, cfg, pix0, n_px, sample_base, spp):
+    """The window as calls of 64 samples added in turn (the plan of the
+    engine while it read ``mega_spp_batch`` = 64) -> (sums, rays)."""
+    eye, rot = camera_mod.camera_tensors(cam, "cpu")
+    acc = torch.zeros((n_px, 3), device="cuda")
+    rays = torch.zeros((), dtype=torch.float64, device="cuda")
+    for done in range(0, spp, 64):
+        out = megak.mega_render(sd, eye, rot, cfg, sample_base + done, min(64, spp - done),
+                                pix0, n_px)
+        acc += out[0:3].T
+        rays += out[3].sum(dtype=torch.float64)
+    return acc, float(rays)
+
+
+@pytest.mark.parametrize("pix0,n_px", [(0, 64 * 48), (1001, 1500)])
+def test_a_256_spp_window_split_by_pixels_is_bit_equal(jade_cuda, monkeypatch, pix0, n_px):
+    """A window's 256 samples in one launch, or split into pixel windows
+    (MAX_ITEMS set to 700 pixels' items): sums and useful rays bit for
+    bit, since a pixel's sum depends on spp alone (so a mesh's tiles
+    render the one-card film)."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=256, max_depth=5)
+    kernels.reset_launches()
+    one, rays_one = _mega_window(sd, ds.camera, cfg, pix0, n_px, 9, 256)
+    assert kernels.LAUNCHES["mega_render"] == 1
+    monkeypatch.setattr(megak, "MAX_ITEMS", 700 * 256)
+    kernels.reset_launches()
+    split, rays_split = _mega_window(sd, ds.camera, cfg, pix0, n_px, 9, 256)
+    assert kernels.LAUNCHES["mega_render"] == len(megak.launch_windows(n_px, 256)) > 1
+    assert rays_split == rays_one
+    assert torch.equal(split, one)
+
+
+def test_a_256_spp_window_is_four_64_spp_calls_within_rounding(jade_cuda):
+    """One ascending sum of a window's 256 samples against four 64-sample
+    sums added in turn: useful rays exact, and the same samples summed in
+    another order. Each sample's value is a one-sample launch's: the
+    window is their ascending f32 fold bit for bit, and each of the two
+    sums lies within the recursive-summation bound gamma_k x sum|x| of
+    their exact (float64) sum, k the most adds on one sample's way into
+    the sum (255 for one sum, 63 + 3 for four), u = 2^-24. A relative
+    bound such as 1e-6 does not hold: the sums of a few pixels whose 256
+    samples are near equal round the same way at each add (up to 1.8e-6
+    of the sum apart on an H100)."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=256, max_depth=5)
+    one, rays_one = _mega_window(sd, ds.camera, cfg, 0, 64 * 48, 3, 256)
+    four, rays_four = _calls_of_64(sd, ds.camera, cfg, 0, 64 * 48, 3, 256)
+    assert rays_one == rays_four
+    eye, rot = camera_mod.camera_tensors(ds.camera, "cpu")
+    x = torch.stack([megak.mega_render(sd, eye, rot, cfg, 3 + j, 1)[0:3].T
+                     for j in range(256)])
+    fold = torch.zeros_like(one)
+    for j in range(256):
+        fold = fold + x[j]
+    assert torch.equal(one, fold)
+    exact, size = x.double().sum(0), x.double().abs().sum(0)
+
+    def gamma(k):
+        return k * 2.0 ** -24 / (1 - k * 2.0 ** -24)
+
+    assert bool(((one.double() - exact).abs() <= gamma(255) * size).all())
+    assert bool(((four.double() - exact).abs() <= gamma(66) * size).all())
+    assert not torch.equal(one, four)  # the two plans are two sums
+
+
+def test_a_64_spp_window_is_one_64_spp_call_bit_for_bit(jade_cuda):
+    """At 64 samples the window is one call, as it was while the engine
+    split by ``mega_spp_batch`` = 64: the film bit for bit, rays equal."""
+    ds, sd = jade_cuda
+    cfg = RenderConfig(width=64, height=48, spp=64, max_depth=5)
+    for pix0, n_px in WINDOWS:
+        one, rays_one = _mega_window(sd, ds.camera, cfg, pix0, n_px, 64, 64)
+        old, rays_old = _calls_of_64(sd, ds.camera, cfg, pix0, n_px, 64, 64)
+        assert rays_one == rays_old
+        assert torch.equal(one, old), (pix0, n_px)
 
 
 def test_pool_window_matches_the_mega_window(jade_cuda):

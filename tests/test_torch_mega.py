@@ -48,21 +48,179 @@ def test_mega_cornell_matches_jax_mega():
     np.testing.assert_allclose(b, a, atol=1e-4 * scale, rtol=1e-3)
 
 
-@pytest.mark.parametrize("batch", [1, 3])
-def test_mega_batches_equal_scan(batch):
-    """mega_spp_batch splits the samples over launches; the film and the
-    useful-ray count equal the scan engine's."""
+@pytest.mark.parametrize("calls", [1, 2])
+def test_mega_batches_equal_scan(calls, monkeypatch):
+    """The window's 4 samples in one ``mega_render`` call, or split over
+    two (``MAX_ITEMS`` set below spp: calls of 3 and 1 samples); the film
+    and the useful-ray count equal the scan engine's."""
     ds = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
     ds.camera.r = 2.0
     st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
-    cfg = TConfig(**SIZE, mega_spp_batch=batch)
+    cfg = TConfig(**SIZE)
+    if calls > 1:
+        monkeypatch.setattr(megak, "MAX_ITEMS", 3)
+    seen = _spy_calls(monkeypatch)
     s_mega, s_scan = {}, {}
     a = trender.render_film(st, ds.camera, cfg.replace(engine="mega"), stats=s_mega)
+    assert len(seen) == calls
     b = trender.render_film(st, ds.camera, cfg.replace(engine="scan"), stats=s_scan)
     assert a.count == b.count == 4
     np.testing.assert_allclose(a.accum.numpy(), b.accum.numpy(), rtol=1e-5,
                                atol=1e-5 * float(b.accum.abs().max()))
     assert s_mega["rays"] == s_scan["rays"]
+
+
+def _spy_calls(monkeypatch) -> list:
+    """Wrap ``ops.mega.mega_render``: the list receives (sample_base, spp,
+    pix0, n_px) of each call."""
+    seen, real = [], megak.mega_render
+
+    def spy(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None):
+        seen.append((sample_base, spp, pix0, n_px))
+        return real(sd, eye, rot, cfg, sample_base, spp, pix0, n_px, stamps=stamps)
+
+    monkeypatch.setattr(megak, "mega_render", spy)
+    return seen
+
+
+class _FakeLibrary:
+    """The megakernel's C interface on the host: each ``mega_render``
+    launch appends (first pixel, pixels, spp) and succeeds."""
+
+    def __init__(self):
+        self.launches = []
+
+    def mega_render(self, s, r, pix0, n, out, ld, part, next_item, stamps, stream):
+        self.launches.append((pix0, n, r._obj.spp))
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``render_window_mega`` over ``mega_render``'s launch path without a
+    card: the window's calls go to a scene on the meta device (no memory
+    behind its buffers) whose launches ``_FakeLibrary`` records; each call
+    returns zero sums on the CPU. -> (calls, the library)."""
+    import types
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "scene_args", lambda sd, stack: kernels.SceneArgs())
+    monkeypatch.setattr(kernels, "stream", lambda device: None)
+    meta = types.SimpleNamespace(device=torch.device("meta"))
+    seen, real = [], megak.mega_render
+
+    def on_meta(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None):
+        seen.append((sample_base, spp, pix0, n_px))
+        real(meta, eye, rot, cfg, sample_base, spp, pix0, n_px)
+        return torch.zeros((4, n_px))
+
+    monkeypatch.setattr(megak, "mega_render", on_meta)
+    return seen, lib
+
+
+def _tile_windows(npix: int, n_tile: int) -> list:
+    """(first pixel, pixels) of each rank's tile window of a ``--mesh
+    {n_tile}x1``."""
+    from jaderaytracerendering_tpu_torch.parallel import sharding
+
+    grid = np.arange(n_tile).reshape(n_tile, 1)
+    return [sharding._window(npix, sharding.Mesh(grid, sharding.AXES, r, None, None))[1:]
+            for r in range(n_tile)]
+
+
+# (film side, first pixel, pixels, spp) -> the launches of the window's
+# one call: 256^2 x 256 in one launch of 2^24 items; 1024^2 x 256 in four,
+# the rows of a --mesh 4x1's tiles; one such tile in one launch of 2^26
+PLANS = [
+    (256, 0, 1 << 16, 256, [(0, 1 << 16)]),
+    (1024, 0, 1 << 20, 256, _tile_windows(1 << 20, 4)),
+    (1024, 1 << 18, 1 << 18, 256, [(1 << 18, 1 << 18)]),
+    (1024, 0, 1 << 20, 64, [(0, 1 << 20)]),
+]
+
+
+@pytest.mark.parametrize("side,pix0,n_px,spp,launches", PLANS)
+def test_a_window_is_one_call_split_by_pixels_only(fake_card, side, pix0, n_px, spp,
+                                                   launches):
+    """``render_window_mega`` makes one ``mega_render`` call for all of a
+    window's samples; the call launches the windows of ``launch_windows``
+    (at most MAX_ITEMS items each), every one at the window's spp."""
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+
+    seen, lib = fake_card
+    cam = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32)).camera
+    cfg = TConfig(width=side, height=side, spp=spp)
+    acc = torch.zeros((n_px, 3))
+    tmega.render_window_mega(None, cam, cfg, acc, pix0, 7, spp)
+    assert seen == [(7, spp, pix0, n_px)]
+    assert [(a - pix0, n) for a, n, _ in lib.launches] == megak.launch_windows(n_px, spp)
+    assert [(a, n) for a, n, _ in lib.launches] == launches
+    assert {k for _, _, k in lib.launches} == {spp}
+    assert max(n for _, n, _ in lib.launches) * spp <= megak.MAX_ITEMS
+
+
+def test_the_samples_split_over_calls_only_past_max_items(fake_card, monkeypatch):
+    """Where one pixel's samples alone pass MAX_ITEMS the window's samples
+    go in calls of MAX_ITEMS samples, in order, each launched a pixel at a
+    time."""
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+
+    seen, lib = fake_card
+    monkeypatch.setattr(megak, "MAX_ITEMS", 100)
+    cam = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32)).camera
+    cfg = TConfig(width=4, height=4, spp=256)
+    tmega.render_window_mega(None, cam, cfg, torch.zeros((3, 3)), 5, 11, 256)
+    assert seen == [(11, 100, 5, 3), (111, 100, 5, 3), (211, 56, 5, 3)]
+    assert lib.launches == [(p, 1, k) for k in (100, 100, 56) for p in (5, 6, 7)]
+
+
+def test_the_launches_counter_records_only_under_the_profiler(fake_card):
+    """``ops.mega.launches`` adds one a megakernel launch while spans are
+    recorded (four a 1024^2 x 256 window, one a 256^2 x 256 one), and
+    nothing without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+    from jaderaytracerendering_tpu_torch.utils import logging as tlog
+
+    cam = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32)).camera
+    big, tile = TConfig(width=1024, height=1024, spp=256), TConfig(width=256, height=256,
+                                                                   spp=256)
+    kernels.reset_launches()
+    tmega.render_window_mega(None, cam, big, torch.zeros((1 << 20, 3)), 0, 0, 256)
+    assert "ops.mega.launches" not in tlog.counters()
+    assert kernels.LAUNCHES["mega_render"] == kernels.LAUNCHES["mega_fold"] == 4
+    got = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for cfg in (big, tile):
+            kernels.reset_launches()
+            tmega.render_window_mega(None, cam, cfg, torch.zeros((cfg.width ** 2, 3)), 0,
+                                     0, 256)
+            got.append(dict(tlog.counters()))
+    tlog.reset()
+    assert got == [{"ops.mega.launches": 4}, {"ops.mega.launches": 1}]
+
+
+def test_split_samples_render_the_unsplit_film(monkeypatch):
+    """The plain version (a scene on the CPU) over a window whose samples
+    split over calls (MAX_ITEMS below spp) renders the one call's film:
+    each call sums its samples in order and the window adds the calls in
+    order, so the sums are the same sums; useful rays equal."""
+    from jaderaytracerendering_tpu_torch.integrator import mega as tmega
+
+    ds = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
+    ds.camera.r = 2.0
+    st = tscene.assemble(ds.objects, ds.env_map, device="cpu")
+    cfg = TConfig(**SIZE)
+    one, split = torch.zeros((64, 3)), torch.zeros((64, 3))
+    rays_one = tmega.render_window_mega(st, ds.camera, cfg, one, 0, 2, 4)
+    monkeypatch.setattr(megak, "MAX_ITEMS", 3)
+    seen = _spy_calls(monkeypatch)
+    rays_split = tmega.render_window_mega(st, ds.camera, cfg, split, 0, 2, 4)
+    assert [(b, k) for b, k, _, _ in seen] == [(2, 3), (5, 1)]
+    assert rays_split == rays_one
+    assert torch.equal(split, one)
 
 
 # pixel windows (pix0, n_px) of the 64-pixel film: the first, a ragged
