@@ -56,10 +56,13 @@
 //   window is the pixel pix0 + j (the camera ray and every draw key), and
 //   the output is indexed by slot. A multi-device render runs one window
 //   a tile shard.
-// - Optional stamps (three u64 of %globaltimer ns, or null): the warps'
-//   first start (atomicMin), the first handout that finds the counter dry
-//   (atomicMin), the warps' last exit (atomicMax); ops/mega.py reads them
-//   as the launch's time and its tail.
+// - Optional stamps (five u64, or null): three of %globaltimer ns, the
+//   warps' first start (atomicMin), the first handout that finds the
+//   counter dry (atomicMin), the warps' last exit (atomicMax); then two
+//   counts, the bounces resolved and those whose branch is SSS entry or
+//   exit (each thread counts in registers; at exit each warp adds its
+//   sums, one atomicAdd a count). ops/mega.py reads them as the launch's
+//   time, its tail and its bounces.
 // - The packed walk tables and the shared-memory stack of path.cuh.
 // Direct refraction (DIR_REFRACT): the kernel is a template on HR; the
 // march (refract_march_dev, with its own walk, the second call site, in
@@ -118,6 +121,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
   Walk w;                    // the lane's walk, run in slices
   w.sp = 0;
   bool walking = false;
+  unsigned n_bounce = 0, n_sss = 0;  // bounces resolved, and of them SSS entry or exit
 
   auto enter_bounce = [&]() {
     nray += s.n_emit + 2;
@@ -169,6 +173,8 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
         if (entered) {
           entered = false;
           bounce_front_dev(s, r, hb, p, f);
+          ++n_bounce;
+          n_sss += f.sss_entry || f.sss_exit;
           dirref = HR && f.is_dirref;
           if (f.emit_break) {  // break with l_dir = Le: resolved below without a walk
             step = st_cont;
@@ -279,7 +285,15 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
     if (!__any_sync(0xffffffffu, item < n_items)) break;  // every lane holds an item here
     if (walking) walking = !walk_run(s, w, MEGA_WALK_SLICE);
   }
-  if (stamps && lane == 0) atomicMax(&stamps[2], global_ns());
+  if (stamps) {
+    n_bounce = __reduce_add_sync(0xffffffffu, n_bounce);
+    n_sss = __reduce_add_sync(0xffffffffu, n_sss);
+    if (lane == 0) {
+      atomicMax(&stamps[2], global_ns());
+      atomicAdd(&stamps[3], (unsigned long long)n_bounce);
+      atomicAdd(&stamps[4], (unsigned long long)n_sss);
+    }
+  }
 }
 
 // Each slot's radiance sums and useful rays: its spp partials summed in
@@ -310,7 +324,7 @@ extern "C" {
 // Radiance sums [3, n_px] and useful rays [1, n_px] of the pixels pix0 ..
 // pix0 + n_px - 1 into out (rows 0-3, row stride ld >= n_px). part: the
 // n_px x spp float4 partials; next_item: one int, zero at the launch;
-// stamps: null, or three u64 set to (max, max, 0) (the wrapper's). The
+// stamps: null, or five u64 set to (max, max, 0, 0, 0) (the wrapper's). The
 // megakernel, then the fold, on the stream.
 int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out, int ld,
                 float4* part, int* next_item, unsigned long long* stamps, void* stream) {

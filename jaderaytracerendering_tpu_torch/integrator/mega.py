@@ -47,7 +47,8 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
     samples only where one pixel's items alone would overflow the
     scratch) -> the useful rays traced; nothing goes into ``stats``. While
     spans are recorded the launches' stamps are read after the rays' sync
-    into the counters ``ops.mega.launch_us`` and ``ops.mega.tail_us``."""
+    into the counters ``ops.mega.launch_us``, ``ops.mega.tail_us``,
+    ``ops.mega.bounces`` and ``ops.mega.sss_bounces``."""
     eye, rot = host_camera(cam)
     n_px = acc.shape[0]
     rays = torch.zeros((), dtype=torch.float64, device=acc.device)

@@ -36,12 +36,14 @@ SCAN_LANES = 1 << 16
 
 
 def render_batch(sd, eye, rot, pixel_ids: torch.Tensor, sample_base: int,
-                 cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes):
+                 cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes,
+                 counts: Optional[dict] = None):
     """Radiance sums over ``sppb`` samples per pixel id (samples
     ``sample_base ..``, ascending) -> ([P, 3] f32, useful rays [P] f32,
     or None for the preview integrator, which counts none). ``query`` is
     the ray query (``wavefront.nearest_planes_plain`` walks the plain BVH
-    on any device)."""
+    on any device); ``counts`` gets the full integrator's bounces
+    (``wavefront.bounce_step``)."""
     p = pixel_ids.shape[0]
     pid = pixel_ids.repeat(sppb)
     sid = (torch.arange(sppb, dtype=torch.int64, device=pixel_ids.device)
@@ -56,7 +58,7 @@ def render_batch(sd, eye, rot, pixel_ids: torch.Tensor, sample_base: int,
         rays = None
     else:
         rad, rays = wavefront.trace_radiance_p(o, d, pid, sid, sd, cfg,
-                                               with_stats=True, query=query)
+                                               with_stats=True, query=query, counts=counts)
         rays = rays.reshape(sppb, p)
     rad = torch.stack([rad.x, rad.y, rad.z], dim=-1).reshape(sppb, p, 3)
     out = rad[0]

@@ -451,12 +451,19 @@ def resolve_step(f: Front, state, hits, idxs, ts, sd, cfg):
     return (accept, ray_src, out_dir, hit_idx, killed), (dir_out, rate_out)
 
 
-def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg, query=nearest_planes):
+def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg, query=nearest_planes,
+                counts: _t.Optional[dict] = None):
     """One masked bounce. ``state`` = (active, ray_src V3, out_dir V3,
     hit_idx, killed); ``query`` is the ray query (of the march too).
-    Returns (state, (dir_b V3, rate_b V3))."""
+    ``counts``, a dict, gets the bounce's active lanes added to
+    ``"bounces"`` and those whose branch is SSS entry or exit to
+    ``"sss_bounces"`` (0-d int64 tensors). Returns (state, (dir_b V3,
+    rate_b V3))."""
     m = state[1].x.shape[0]
     f, seg_o, seg_d, seg_x = front_step(state, b, pixel_id, sample_id, sd, cfg, query)
+    if counts is not None:
+        counts["bounces"] = counts.get("bounces", 0) + state[0].sum()
+        counts["sss_bounces"] = counts.get("sss_bounces", 0) + (f.sss_entry | f.sss_exit).sum()
     # one nearest-hit batch of all segments
     bhit, bidx, bt = query(vcat(seg_o), vcat(seg_d), torch.cat(seg_x), sd,
                            cfg.bvh_stack_size)
@@ -476,12 +483,13 @@ def composite_p(dirs: list, rates: list) -> V3:
 
 
 def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
-                     with_stats: bool = False, query=nearest_planes):
+                     with_stats: bool = False, query=nearest_planes,
+                     counts: _t.Optional[dict] = None):
     """Primary rays -> radiance V3 (render_pixel body, cu:1426-1455).
 
     ``with_stats=True`` also returns each lane's count of useful rays
     (the primary plus E + 2 per bounce the lane entered alive). ``query``
-    is the ray query of every trace."""
+    is the ray query of every trace; ``counts`` as in ``bounce_step``."""
     m = origins.x.shape[0]
     d_unit = _unit_p(dirs)
     ex0 = torch.full((m,), -1, dtype=torch.int32, device=origins.x.device)
@@ -494,7 +502,8 @@ def trace_radiance_p(origins: V3, dirs: V3, pixel_id, sample_id, sd, cfg,
     dir_list, rate_list = [], []
     for b in range(cfg.max_depth):
         rays = rays + state[0].to(torch.float32) * float(sd.n_emit + 2)
-        state, (d_b, r_b) = bounce_step(state, b, pixel_id, sample_id, sd, cfg, query)
+        state, (d_b, r_b) = bounce_step(state, b, pixel_id, sample_id, sd, cfg, query,
+                                        counts)
         dir_list.append(d_b)
         rate_list.append(r_b)
     li = vwhere(state[4], 0.0, composite_p(dir_list, rate_list))  # escape kill

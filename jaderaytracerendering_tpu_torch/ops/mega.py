@@ -9,7 +9,10 @@ scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
 counts kernel launches, so a caller can show that a run went through the
 kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's;
 while spans are recorded the counter ``ops.mega.launches`` counts the
-megakernel's launches too.
+megakernel's launches too, and ``ops.mega.bounces`` and
+``ops.mega.sss_bounces`` the bounces its paths resolved (on the card
+from each launch's stamps, ``count_stamps``; the plain version as it
+renders).
 
 The megakernel's work items are (pixel, sample) pairs, ``spp`` a pixel;
 each item leaves a float4 partial in a scratch buffer that the fold
@@ -63,20 +66,26 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
     """The plain PyTorch version: [4, n_px] f32, rows 0-2 the radiance
     sums over samples sample_base .. sample_base+spp-1 of the pixels pix0
     .. pix0+n_px-1, row 3 the useful rays (integrator/wavefront.trace_radiance_p,
-    with the plain BVH walk on any device)."""
+    with the plain BVH walk on any device). While spans are recorded it
+    adds its bounces to the counters ``ops.mega.bounces`` and
+    ``ops.mega.sss_bounces``, as the kernel's stamps do."""
     from ..integrator.render import SCAN_LANES, render_batch
     from ..integrator.wavefront import nearest_planes_plain
 
     n_px = _window(cfg, pix0, n_px)
     out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
     chunk = max(1, SCAN_LANES // max(spp, 1))
+    counts = {} if logging.recording() else None
     for c0 in range(0, n_px, chunk):
         ids = torch.arange(pix0 + c0, pix0 + min(c0 + chunk, n_px), dtype=torch.int64,
                            device=sd.device)
         rad, rays = render_batch(sd, eye, rot, ids, sample_base, cfg, spp,
-                                 query=nearest_planes_plain)
+                                 query=nearest_planes_plain, counts=counts)
         out[0:3, c0:c0 + ids.shape[0]] = rad.T
         out[3, c0:c0 + ids.shape[0]] = rays
+    if counts:
+        logging.count("ops.mega.bounces", int(counts["bounces"]))
+        logging.count("ops.mega.sss_bounces", int(counts["sss_bounces"]))
     return out
 
 
@@ -86,8 +95,9 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
     """Render ``spp`` samples of the pixel window pix0 .. pix0+n_px-1 (the
     whole film by default) -> [4, n_px] f32 (radiance sums, useful rays),
     column j for pixel pix0 + j. ``eye`` [3] and ``rot`` [4, 4] are the
-    camera. ``stamps``, a list, receives one int64 [3] device tensor a
-    launch (start, dry counter, end: %globaltimer ns; ``count_stamps``)."""
+    camera. ``stamps``, a list, receives one int64 [5] device tensor a
+    launch (start, dry counter, end: %globaltimer ns; then the bounces and
+    the SSS bounces; ``count_stamps``)."""
     if sd.device.type == "cpu":
         return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px)
     n_px = _window(cfg, pix0, n_px)
@@ -101,8 +111,8 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
     for i, (a, n) in enumerate(wins):
         st = None
         if stamps is not None and spp > 0:  # no samples: no megakernel to stamp
-            st = torch.full((3,), _NEVER, dtype=torch.int64, device=sd.device)
-            st[2] = 0
+            st = torch.full((5,), _NEVER, dtype=torch.int64, device=sd.device)
+            st[2:] = 0
             stamps.append(st)
         rc = lib.mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0) + a, n,
                              ctypes.c_void_p(out.data_ptr() + 4 * a), n_px, kernels.ptr(part),
@@ -116,15 +126,18 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
 
 
 def count_stamps(stamps: list) -> None:
-    """Add the launches' times and tails (``mega_render``'s ``stamps``,
-    read once the work is done) to the counters ``ops.mega.launch_us``
-    (end less start) and ``ops.mega.tail_us`` (end less the first handout
-    that found the counter dry), rounded to whole us over the list."""
+    """Add the launches' times, tails and bounces (``mega_render``'s
+    ``stamps``, read once the work is done) to the counters
+    ``ops.mega.launch_us`` (end less start) and ``ops.mega.tail_us`` (end
+    less the first handout that found the counter dry), rounded to whole
+    us over the list, ``ops.mega.bounces`` and ``ops.mega.sss_bounces``."""
     if not stamps:
         return
     t = torch.stack(stamps).cpu()
     logging.count("ops.mega.launch_us", round(int((t[:, 2] - t[:, 0]).sum()) / 1e3))
     logging.count("ops.mega.tail_us", round(int((t[:, 2] - t[:, 1]).sum()) / 1e3))
+    logging.count("ops.mega.bounces", int(t[:, 3].sum()))
+    logging.count("ops.mega.sss_bounces", int(t[:, 4].sum()))
 
 
 def render_preview_mega_plain(sd, eye, rot, cfg, sample_base: int, spp: int,

@@ -14,6 +14,12 @@ timeline on the kernels' clock, and is kept in memory
 (``spans()``, ``counters()``) until ``reset()``, which
 ``ops/kernels.reset_launches`` calls. Nothing is written to disk.
 
+The megakernel's counters (ops/mega.py, integrator/mega.py):
+``ops.mega.launches``, ``ops.mega.launch_us`` and ``ops.mega.tail_us``
+(its launches and their %globaltimer time and tail), ``ops.mega.bounces``
+(every bounce its paths resolved) and ``ops.mega.sss_bounces`` (those
+whose branch was SSS entry or exit).
+
 Each span carries the number of its request (``Span.item``) and the
 index of its parent in ``spans()``. A top-level span opened with
 ``request=True`` (an image of ``render_film``, a preview frame) starts

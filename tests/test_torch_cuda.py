@@ -677,6 +677,51 @@ def test_mega_stamps_count_the_launch_and_its_tail(jade_cuda):
     assert 0 < got["ops.mega.tail_us"] <= got["ops.mega.launch_us"]
 
 
+def _closeup_camera():
+    """The framing of the benchmark's close-up configuration."""
+    import json
+    import pathlib
+
+    f = pathlib.Path(__file__).resolve().parent.parent / "benchmark" / "configs"
+    c = json.loads((f / "jade_offline_closeup.json").read_text())["camera"]
+    return camera_mod.OrbitCamera(up_angle=c["up_deg"], rotate_angle=c["rotate_deg"], r=c["r"],
+                                  eye_center=np.asarray(c["center"], np.float64))
+
+
+@pytest.mark.parametrize("refract", [False, True], ids=["HR-false", "HR-true"])
+def test_mega_bounce_counts_equal_the_plain_paths(jade_cuda, refract):
+    """At the close-up framing of a 2,000-triangle jade statue, the
+    kernel's stamps count as many bounces and SSS bounces as the plain
+    version resolves; HR-true makes the floor DIR_REFRACT, so the
+    ``<true>`` instance runs with the statue still jade."""
+    from jaderaytracerendering_tpu_torch.scene import material
+
+    ds = demo.jade_scene(n_buddha_tris=2000, env_shape=(32, 64))
+    if refract:
+        floor = next(i for i, o in enumerate(ds.objects) if o.name == "floor")
+        glass = dataclasses.replace(ds.objects[floor].material,
+                                    refract_mode=material.DIR_REFRACT, refract_index=1.5,
+                                    refract_rate=(0.9, 0.9, 0.9))
+        ds.objects[floor] = dataclasses.replace(ds.objects[floor], material=glass)
+    sd = assemble(ds.objects, ds.env_map, device="cuda")
+    assert sd.has_refract == refract
+    cfg = RenderConfig(width=48, height=48, spp=4, max_depth=8, max_refract_bounces=16)
+    eye, rot = camera_mod.camera_tensors(_closeup_camera(), "cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        tlog.reset()
+        stamps = []
+        k = megak.mega_render(sd, eye, rot, cfg, 0, cfg.spp, stamps=stamps)
+        megak.count_stamps(stamps)
+        got_k = dict(tlog.counters())
+        tlog.reset()
+        p = megak.mega_render_plain(sd, eye.cuda(), rot.cuda(), cfg, 0, cfg.spp)
+        got_p = dict(tlog.counters())
+    tlog.reset()
+    assert got_k["ops.mega.bounces"] == got_p["ops.mega.bounces"] > 0
+    assert got_k["ops.mega.sss_bounces"] == got_p["ops.mega.sss_bounces"] > 0
+    assert torch.equal(k[3], p[3])  # the useful rays: 1 + (E + 2) a bounce
+
+
 def _mega_window(sd, cam, cfg, pix0, n_px, sample_base, spp):
     """``render_window_mega`` into a fresh window -> (sums [n_px, 3], rays)."""
     from jaderaytracerendering_tpu_torch.integrator import mega as tmega
