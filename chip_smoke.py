@@ -74,9 +74,9 @@ card and checks its CUDA kernels against their plain PyTorch versions:
      the kernels they ran (one preview and one postfx launch a frame,
      nothing else);
  14. multi-device: (a) the three tile windows of a 3x1 mesh at the main
-     path (the middle one starts off a block edge, the last is shorter)
-     through the megakernel, each equal bit for bit to its columns of
-     phase 4's film, and through the pool, within ``compare_images`` of
+     path (film rows t, t + 3, .., dealt round-robin) through the
+     megakernel, each equal bit for bit to its rows of phase 4's film,
+     and through the pool, within ``compare_images`` of
      them with equal useful rays; (b) the render CLI at its defaults in
      fresh processes: on one device (the yardstick), then with ``--mesh
      2x1`` (film bit for bit phase 4's) and ``--mesh 1x2 --engine pool``
@@ -1173,29 +1173,30 @@ def main() -> None:
         f"kernel [{gpu}]")
 
     # ---- phase 14: multi-device ------------------------------------------
-    # (a) windows in-process: the three tile windows of a 3x1 mesh (the
-    # middle one starts off a block edge, the last is shorter) through the
-    # megakernel, each equal to its columns of phase 4's film bit for bit;
-    # the pool over the same windows within compare_images of them, with
-    # equal useful rays
-    shard14 = -(-npix // 3)
-    windows14 = [(t * shard14, min(shard14, npix - t * shard14)) for t in range(3)]
-    flat4 = mega_film.reshape(-1, 3)
+    # (a) windows in-process: the three tile windows of a 3x1 mesh (film
+    # rows t, t + 3, .., dealt round-robin: row_step 3, the first window a
+    # row longer) through the megakernel, each equal to its rows of phase
+    # 4's film bit for bit; the pool over the same windows within
+    # compare_images of them, with equal useful rays
+    windows14 = [(t * cfg4.width, len(range(t, cfg4.height, 3)) * cfg4.width)
+                 for t in range(3)]
     win14 = []
     rays14 = 0.0
-    for p0, n_px in windows14:
+    for t, (p0, n_px) in enumerate(windows14):
+        want_w = mega_film[t::3].reshape(-1, 3)
         kernels.reset_launches()
         t_w = time.perf_counter()
-        out_w = megak.mega_render(sd, eye_h, rot_h, cfg4, 0, cfg4.spp, p0, n_px)
+        out_w = megak.mega_render(sd, eye_h, rot_h, cfg4, 0, cfg4.spp, p0, n_px, row_step=3)
         torch.cuda.synchronize()
         mega_w_ms = (time.perf_counter() - t_w) * 1e3
-        if not torch.equal(out_w[0:3].T, flat4[p0:p0 + n_px]):
-            n_bad = int((out_w[0:3].T != flat4[p0:p0 + n_px]).any(dim=1).sum())
-            raise AssertionError(f"phase 14 window [{p0}, {p0 + n_px}): {n_bad} pixels differ "
+        if not torch.equal(out_w[0:3].T, want_w):
+            n_bad = int((out_w[0:3].T != want_w).any(dim=1).sum())
+            raise AssertionError(f"phase 14 window of rows {t}::3: {n_bad} pixels differ "
                                  f"from phase 4's film")
         acc_w = torch.zeros((n_px, 3), device=dev)
         t_w = time.perf_counter()
-        pool_rays_w = pool.render_window_pool(sd, ds.camera, cfg4, acc_w, p0, 0, cfg4.spp)
+        pool_rays_w = pool.render_window_pool(sd, ds.camera, cfg4, acc_w, p0, 0, cfg4.spp,
+                                              row_step=3)
         torch.cuda.synchronize()
         pool_w_ms = (time.perf_counter() - t_w) * 1e3
         mega_rays_w = float(out_w[3].sum(dtype=torch.float64))
@@ -1209,15 +1210,15 @@ def main() -> None:
                                         "resolve_bounce")) < 1:
             raise AssertionError(f"phase 14 window {p0}: launches {launches_w}")
         rays14 += mega_rays_w
-        win14.append({"pix0": p0, "n_px": n_px, "mega_ms": mega_w_ms, "pool_ms": pool_w_ms,
+        win14.append({"rows": f"{t}::3", "n_px": n_px, "mega_ms": mega_w_ms, "pool_ms": pool_w_ms,
                       "pool_max_abs_err": err_w, "pool_outside": outside_w,
                       "useful_rays": mega_rays_w})
     if rays14 != mega_rays:
         raise AssertionError(f"phase 14: the windows' useful rays {rays14} vs the film's "
                              f"{mega_rays}")
     log("phase 14 windows: " + "; ".join(
-        f"[{w['pix0']}, {w['pix0'] + w['n_px']}) mega {w['mega_ms']:.2f} ms bit-equal to phase "
-        f"4's columns, pool {w['pool_ms']:.2f} ms max abs err {w['pool_max_abs_err']:.3e} "
+        f"rows {w['rows']} mega {w['mega_ms']:.2f} ms bit-equal to phase "
+        f"4's rows, pool {w['pool_ms']:.2f} ms max abs err {w['pool_max_abs_err']:.3e} "
         f"({w['pool_outside']} outside), rays equal" for w in win14) + f" [{gpu}]")
 
     # (b) the render CLI over a mesh, its ranks spawned by the CLI: 2x1

@@ -53,9 +53,11 @@
 // - A persistent grid (SMs x resident blocks) whose warps take items from
 //   a global counter, as many as their lanes need, one atomicAdd a warp.
 // - A pixel window, as the TPU kernel's shard_px and offset: slot j of the
-//   window is the pixel pix0 + j (the camera ray and every draw key), and
-//   the output is indexed by slot. A multi-device render runs one window
-//   a tile shard.
+//   window is the pixel window_pixel(r, pix0, j) (path.cuh: pix0 + j, or
+//   whole rows r.row_step apart), which gives the camera ray and every
+//   draw key, and the output is indexed by slot. A launch runs slots
+//   slot0 .. of its window. A multi-device render runs one window a tile
+//   rank: its film rows dealt round-robin.
 // - Optional stamps (five u64, or null): three of %globaltimer ns, the
 //   warps' first start (atomicMin), the first handout that finds the
 //   counter dry (atomicMin), the warps' last exit (atomicMax); then two
@@ -98,7 +100,7 @@ __host__ __device__ inline size_t mega_smem_bytes(const SceneArgs& s) {
 
 template <bool HR>
 __global__ void __launch_bounds__(MEGA_THREADS, MEGA_MIN_BLOCKS)
-mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
+mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int slot0, int n_items,
                    float4* __restrict__ part, int* __restrict__ next_item,
                    unsigned long long* __restrict__ stamps) {
   const int st_hdr = s.n_emit, st_cont = s.n_emit + 1;
@@ -268,7 +270,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int n_items,
       }
     }
     if (start) {  // the camera ray of the item's sample (wavefront.trace_radiance_p)
-      const uint32_t gpix = (uint32_t)(pix0 + item / r.spp);  // the film's pixel
+      const uint32_t gpix = window_pixel(r, pix0, slot0 + item / r.spp);  // the film's pixel
       h0 = sample_hash(gpix, r.sample_base + (uint32_t)(item % r.spp));
       qo = eye;
       qd = unit_eps(camera_dir(r, gpix, h0 + r.seed * K_SEED));
@@ -321,13 +323,15 @@ mega_fold_kernel(const float4* __restrict__ part, int n_px, int spp,
 
 extern "C" {
 
-// Radiance sums [3, n_px] and useful rays [1, n_px] of the pixels pix0 ..
-// pix0 + n_px - 1 into out (rows 0-3, row stride ld >= n_px). part: the
-// n_px x spp float4 partials; next_item: one int, zero at the launch;
-// stamps: null, or five u64 set to (max, max, 0, 0, 0) (the wrapper's). The
-// megakernel, then the fold, on the stream.
-int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, float* out, int ld,
-                float4* part, int* next_item, unsigned long long* stamps, void* stream) {
+// Radiance sums [3, n_px] and useful rays [1, n_px] of the slots slot0 ..
+// slot0 + n_px - 1 of the pixel window from pix0 (window_pixel) into out
+// (rows 0-3, row stride ld >= n_px). part: the n_px x spp float4 partials;
+// next_item: one int, zero at the launch; stamps: null, or five u64 set to
+// (max, max, 0, 0, 0) (the wrapper's). The megakernel, then the fold, on
+// the stream.
+int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int slot0, int n_px,
+                float* out, int ld, float4* part, int* next_item, unsigned long long* stamps,
+                void* stream) {
   if (n_px <= 0) return 0;
   const int spp = r->spp > 0 ? r->spp : 0;
   const long long n_items = (long long)n_px * spp;
@@ -340,7 +344,7 @@ int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int n_px, flo
                              (n_items + MEGA_THREADS - 1) / MEGA_THREADS, blocks);
     if (rc) return rc;
     kernel<<<(unsigned)blocks, MEGA_THREADS, smem, (cudaStream_t)stream>>>(
-        *s, *r, pix0, (int)n_items, part, next_item, stamps);
+        *s, *r, pix0, slot0, (int)n_items, part, next_item, stamps);
   }
   mega_fold_kernel<<<(n_px + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
                      (cudaStream_t)stream>>>(part, n_px, spp, out, ld);

@@ -160,6 +160,7 @@ struct RenderArgs {
   float hdr_clamp;
   int max_refract;     // max_refract_bounces
   float internal_reflect_rate;
+  int row_step;        // a pixel window's row stride (window_pixel); 1: contiguous
 };
 
 namespace {
@@ -412,6 +413,15 @@ __device__ V env_sample(const SceneArgs& s, V d, float clamp) {
   c.y = c.y > clamp ? clamp : c.y;
   c.z = c.z > clamp ? clamp : c.z;
   return c;
+}
+
+// ---- pixel windows (core/film.window_pixels) -------------------------------
+// The film pixel of slot `slot` of the pixel window from pixel pix0: with
+// r.row_step 1 the window is contiguous (pix0 + slot); with a larger step
+// it holds whole film rows row0, row0 + row_step, .. (pix0 = row0 x width),
+// slot j in its row j / width at column j % width.
+__device__ __forceinline__ uint32_t window_pixel(const RenderArgs& r, int pix0, int slot) {
+  return (uint32_t)(pix0 + slot + (slot / r.width) * ((r.row_step - 1) * r.width));
 }
 
 // ---- camera (core/camera.generate_rays_p) ----------------------------------

@@ -60,7 +60,7 @@ struct PoolArgs {
   long long total;  // samples in the queue
   int m;            // lanes
   int n_px;         // the pixel window: slot = queue index % n_px,
-  int pix0;         // pixel = pix0 + slot
+  int pix0;         // pixel = window_pixel(r, pix0, slot) (path.cuh)
   float* rf;        // [9, M] the march's exit dir, exit point, rate (HR only)
   int* ri;          // [2, M] the march's escaped flag, last triangle (HR only)
 };
@@ -257,7 +257,7 @@ spawn_primary_kernel(SceneArgs s, RenderArgs r, PoolArgs q, unsigned long long* 
     const int i = t0 + order[k];
     const long long idx = base + k;
     int slot = (int)(idx % q.n_px);
-    uint32_t pix = (uint32_t)(q.pix0 + slot);
+    uint32_t pix = window_pixel(r, q.pix0, slot);
     uint32_t smp = (uint32_t)(idx / q.n_px) + r.sample_base;
     q.is[I_SLOT * m + i] = slot;
     q.is[I_PIX * m + i] = (int)pix;

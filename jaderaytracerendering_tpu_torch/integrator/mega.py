@@ -10,7 +10,7 @@ folded into the Film. ``cfg.mega_spp_batch`` is not read: each launch
 ends in the tail of its longest paths, so only the scratch's bound splits
 a window's work. ``render_window_mega``, the engine's window function
 (integrator/render.py ``ENGINES``), does it for a pixel window:
-the whole film, or the tile shard of a multi-device render
+the whole film, or a tile rank's dealt rows in a multi-device render
 (parallel/sharding.py). The preview's frames through the preview kernel
 are routed in integrator/render.py (``render_film_preview``).
 """
@@ -40,12 +40,13 @@ def host_camera(cam):
 
 
 def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,
-                       spp: int, stats: Optional[dict] = None) -> float:
+                       spp: int, stats: Optional[dict] = None, row_step: int = 1) -> float:
     """Add the radiance sums of ``spp`` samples from ``sample_base`` of the
-    pixels pix0 .. pix0+len(acc)-1 into ``acc`` [n_px, 3] in place, one
-    call of ``mega_render`` for all of them (in steps of ``MAX_ITEMS``
-    samples only where one pixel's items alone would overflow the
-    scratch) -> the useful rays traced; nothing goes into ``stats``. While
+    pixel window's slots (``pix0``, ``row_step``: core/film.window_pixels)
+    into ``acc`` [n_px, 3] in place, one call of ``mega_render`` for all
+    of them (in steps of ``MAX_ITEMS`` samples only where one pixel's
+    items alone would overflow the scratch) -> the useful rays traced;
+    nothing goes into ``stats``. While
     spans are recorded the launches' stamps are read after the rays' sync
     into the counters ``ops.mega.launch_us``, ``ops.mega.tail_us``,
     ``ops.mega.bounces`` and ``ops.mega.sss_bounces``."""
@@ -57,7 +58,7 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
     while done < spp and n_px:
         step = min(megak.MAX_ITEMS, spp - done)
         out = megak.mega_render(sd, eye, rot, cfg, sample_base + done, step, pix0, n_px,
-                                stamps=stamps)
+                                stamps=stamps, row_step=row_step)
         acc += out[0:3].T
         rays += out[3].sum(dtype=torch.float64)
         done += step

@@ -27,8 +27,8 @@ queue's counters once per iteration.
 
 A queue runs over a pixel window (``render_window_pool``, the engine's
 window function in integrator/render.py ``ENGINES``): the whole film, or
-a tile shard of a multi-device render (parallel/sharding.py), which the
-JAX package gives as ``pixel_ids`` (ops/lanes.py).
+a tile rank's dealt rows in a multi-device render (parallel/sharding.py);
+the JAX package gives its tile shard as ``pixel_ids`` (ops/lanes.py).
 
 Not carried over, because they exist for the TPU: ``FILM_TILE`` (the
 whole film runs as one queue; spp is split only where ``npix * spp``
@@ -94,14 +94,14 @@ def run_pool(st: PoolState, steps=KERNELS, max_iters: int = MAX_ITERS) -> int:
 
 def render_window_pool(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: int,
                        spp: int, stats: Optional[dict] = None,
-                       pool_m: Optional[int] = None) -> float:
-    """Pool render of ``spp`` samples from ``sample_base`` of the pixels
-    pix0 .. pix0+len(acc)-1 (one private queue; spp split only where the
-    queue would reach 2^31 samples), their radiance sums added into
-    ``acc`` [n_px, 3] in place -> the useful rays, counted exactly. The
-    loop iterations are added to ``stats["iterations"]`` when ``stats`` is
-    given. ``pool_m`` lanes (default ``POOL_LANES``, capped at the queue
-    length)."""
+                       pool_m: Optional[int] = None, row_step: int = 1) -> float:
+    """Pool render of ``spp`` samples from ``sample_base`` of the pixel
+    window's slots (``pix0``, ``row_step``: core/film.window_pixels; one
+    private queue; spp split only where the queue would reach 2^31
+    samples), their radiance sums added into ``acc`` [n_px, 3] in place
+    -> the useful rays, counted exactly. The loop iterations are added to
+    ``stats["iterations"]`` when ``stats`` is given. ``pool_m`` lanes
+    (default ``POOL_LANES``, capped at the queue length)."""
     n_px = acc.shape[0]
     eye, rot = camera_mod.camera_tensors(cam, sd.device)
     lanes = POOL_LANES if pool_m is None else int(pool_m)
@@ -111,7 +111,7 @@ def render_window_pool(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
         step = min(spp_chunk, spp - done)
         total = n_px * step
         st = PoolState.create(sd, cfg, eye, rot, min(lanes, total), total,
-                              sample_base + done, pix0, n_px)
+                              sample_base + done, pix0, n_px, row_step)
         iters += run_pool(st)
         acc += st.film
         rays += int(st.cnt[C_RAYS])

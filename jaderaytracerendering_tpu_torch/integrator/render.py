@@ -7,12 +7,13 @@ wavefront pool engine (integrator/pool.py: spawn, trace, front and
 resolve kernels), ``scan`` runs the torch integrator
 (integrator/wavefront.py) over fixed-size chunks, its ray queries through
 the trace kernel. The multi-device render (parallel/sharding.py) runs the
-same window functions over tile windows. ``integrator="preview"``
-renders the 2-bounce preview (``render_film_preview``): engine ``mega``
-through the preview kernel, any other through the torch preview
-integrator (integrator/preview.py) in chunks; its display frames go
-through the postfx kernel (ops/postfx.py). On CPU tensors every kernel
-wrapper runs its plain version.
+same window functions over each tile rank's dealt rows.
+``integrator="preview"`` renders the 2-bounce preview
+(``render_film_preview``): engine ``mega`` through the preview kernel,
+any other through the torch preview integrator (integrator/preview.py)
+in chunks; its display frames go through the postfx kernel
+(ops/postfx.py). On CPU tensors every kernel wrapper runs its plain
+version.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core import camera as camera_mod
-from ..core.film import Film
+from ..core.film import Film, window_pixels
 from ..ops import mega as megak
 from ..ops import postfx
 from ..utils.config import RenderConfig, check_traversal
@@ -158,14 +159,18 @@ def render_ids(sd, eye, rot, ids: torch.Tensor, out: torch.Tensor, sample_base: 
 
 
 def render_window(sd, eye, rot, out: torch.Tensor, p0: int, sample_base: int,
-                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes) -> float:
-    """``render_ids`` over the pixels p0 .. p0+len(out)-1."""
-    ids = torch.arange(p0, p0 + out.shape[0], dtype=torch.int64, device=sd.device)
+                  cfg: RenderConfig, sppb: int, query=wavefront.nearest_planes,
+                  row_step: int = 1) -> float:
+    """``render_ids`` over the slots of the pixel window from p0 at
+    ``row_step`` (core/film.window_pixels: p0 .. p0+len(out)-1 at step 1)."""
+    slots = torch.arange(out.shape[0], dtype=torch.int64, device=sd.device)
+    ids = window_pixels(p0, slots, row_step, cfg.width)
     return render_ids(sd, eye, rot, ids, out, sample_base, cfg, sppb, query=query)
 
 
 def render_window_scan(sd, cam, cfg: RenderConfig, acc: torch.Tensor, pix0: int,
-                       sample_base: int, spp: int, stats: Optional[dict] = None) -> float:
+                       sample_base: int, spp: int, stats: Optional[dict] = None,
+                       row_step: int = 1) -> float:
     """The scan engine's window function (``ENGINES``): ``render_window``
     in steps of ``cfg.spp_batch`` samples (the last one shorter) -> the
     useful rays traced. It has no count of its own for ``stats``."""
@@ -174,14 +179,18 @@ def render_window_scan(sd, cam, cfg: RenderConfig, acc: torch.Tensor, pix0: int,
     rays = 0.0
     for done in range(0, spp, sppb):
         rays += render_window(sd, eye, rot, acc, pix0, sample_base + done, cfg,
-                              min(sppb, spp - done))
+                              min(sppb, spp - done), row_step=row_step)
     return rays
 
 
 # The engines: cfg.engine -> its window function fn(sd, cam, cfg, acc, pix0,
-# sample_base, spp, stats=None) -> useful rays. It adds the radiance sums of
-# spp samples from sample_base of the pixels pix0 .. pix0+len(acc)-1 into acc
-# [n_px, 3] in place, and any count of its own into stats when given.
+# sample_base, spp, stats=None, row_step=1) -> useful rays. It adds the
+# radiance sums of spp samples from sample_base of the pixel window's
+# len(acc) slots into acc [n_px, 3] in place, and any count of its own into
+# stats when given. Slot j of the window is the pixel
+# core/film.window_pixels(pix0, j, row_step, width): pix0 + j at row_step 1,
+# else the window holds whole film rows row_step apart (a tile rank's dealt
+# rows, parallel/sharding.py).
 ENGINES = {"mega": mega.render_window_mega, "pool": pool.render_window_pool,
            "scan": render_window_scan}
 

@@ -56,7 +56,8 @@ class RenderArgs(ctypes.Structure):
         + [(k, ctypes.c_float) for k in ("ndc_sx", "ndc_sy", "rr_rate",
                                          "sss_rate", "one_m_sss", "rr_over_pi",
                                          "hdr_clamp")] \
-        + [("max_refract", ctypes.c_int), ("internal_reflect_rate", ctypes.c_float)]
+        + [("max_refract", ctypes.c_int), ("internal_reflect_rate", ctypes.c_float),
+           ("row_step", ctypes.c_int)]
 
 
 class PoolArgs(ctypes.Structure):
@@ -74,7 +75,7 @@ def library() -> ctypes.CDLL:
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {  # entry point of csrc/*.cu -> its ctypes argument types; each returns int
-    "mega_render": [_vp, _vp, _ci, _ci, _vp, _ci, _vp, _vp, _vp, _vp],
+    "mega_render": [_vp, _vp, _ci, _ci, _ci, _vp, _ci, _vp, _vp, _vp, _vp],
     "preview_render": [_vp, _vp, _ci, _ci, _ci, _vp, _vp],
     "postfx": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _ci, _cf, _cf, _ci, _vp],
     "spawn_scratch_words": [_ci],
@@ -139,8 +140,9 @@ def scene_args(sd, stack_size: int) -> SceneArgs:
         sd.bvh_root)
 
 
-def render_args(eye, rot, cfg, sample_base: int, spp: int) -> RenderArgs:
-    """Camera and integrator scalars; ``eye`` [3], ``rot`` [4, 4]."""
+def render_args(eye, rot, cfg, sample_base: int, spp: int, row_step: int = 1) -> RenderArgs:
+    """Camera and integrator scalars; ``eye`` [3], ``rot`` [4, 4];
+    ``row_step``: the pixel window's row stride (core/film.window_pixels)."""
     if cfg.jitter not in ("cuda", "gl"):
         raise ValueError(f"unknown jitter mode {cfg.jitter!r}")
     r = RenderArgs()
@@ -160,6 +162,7 @@ def render_args(eye, rot, cfg, sample_base: int, spp: int) -> RenderArgs:
     r.hdr_clamp = cfg.hdr_clamp
     r.max_refract = int(cfg.max_refract_bounces)
     r.internal_reflect_rate = cfg.internal_reflect_rate
+    r.row_step = int(row_step)
     return r
 
 

@@ -13,13 +13,15 @@ the resolve step: ``rf`` f32 [9, M] (exit direction rows 0-2, exit point
 for the lanes that take direct refraction this bounce and zero
 elsewhere (None without refraction). ``spawn_scan`` is the spawn kernel's
 scratch (a ticket counter and one status word per tile of its scan).
-The queue runs over a pixel window of ``n_px`` pixels from ``pix0`` (the
-whole film by default): ``index`` = 0 .. ``total``-1 takes ``slot = index
-% n_px`` (the film's row), ``pix = pix0 + slot`` (the camera ray and every
-draw key) and sample ``smp = index // n_px + sample_base``. The JAX
-package's pool takes a ``pixel_ids`` table instead, but every caller
-passes a contiguous range there (parallel/sharding.py, padded with pixel
-0, whose padded samples are discarded), so a window covers every caller.
+The queue runs over a pixel window of ``n_px`` slots from ``pix0`` at
+``row_step`` (the whole film by default): ``index`` = 0 .. ``total``-1
+takes ``slot = index % n_px`` (the film's row), ``pix =
+window_pixels(pix0, slot, row_step, width)`` (core/film.py: ``pix0 +
+slot`` at step 1; the camera ray and every draw key) and sample ``smp =
+index // n_px + sample_base``. The JAX package's pool takes a
+``pixel_ids`` table instead, but every caller passes a contiguous range
+there (parallel/sharding.py, padded with pixel 0, whose padded samples
+are discarded), so a window covers every caller.
 The kernels and the plain versions update the state in place.
 
 The JAX package packs the same carry into five TPU buffers with [16, M]
@@ -34,6 +36,7 @@ import dataclasses
 
 import torch
 
+from ..core.film import check_window
 from . import kernels
 
 F_SRC, F_DIR, F_T, F_L, F_LE0 = 0, 3, 6, 9, 12
@@ -50,7 +53,7 @@ class PoolState:
     eye: torch.Tensor        # [3]
     rot: torch.Tensor        # [4, 4]
     pix0: int                # the window's first pixel
-    n_px: int                # the window's pixels: the film's rows
+    n_px: int                # the window's slots: the film's rows
     total: int               # queued samples (< 2^31)
     sample_base: int
     fs: torch.Tensor
@@ -63,17 +66,17 @@ class PoolState:
     # round on the card; no lane state, so a clone shares it (its rounds run
     # one after another on the stream, at the same M)
     spawn_scan: torch.Tensor | None = None
+    row_step: int = 1        # the window's row stride (core/film.window_pixels)
     _args: tuple | None = None
 
     @staticmethod
     def create(sd, cfg, eye, rot, m: int, total: int, sample_base: int, pix0: int = 0,
-               n_px: int | None = None) -> "PoolState":
+               n_px: int | None = None, row_step: int = 1) -> "PoolState":
         dev = sd.device
-        npix = cfg.width * cfg.height
-        n_px = npix - pix0 if n_px is None else int(n_px)
-        if not (0 <= pix0 and 0 < n_px and pix0 + n_px <= npix):
-            raise ValueError(f"pixel window [{pix0}, {pix0 + n_px}) outside the film's "
-                             f"{npix} pixels")
+        n_px = cfg.width * cfg.height - pix0 if n_px is None else int(n_px)
+        check_window(cfg.width, cfg.height, pix0, n_px, row_step)
+        if n_px < 1:
+            raise ValueError("pixel window of no slots: a queue needs one")
         fs = torch.zeros((15, m), dtype=torch.float32, device=dev)
         fs[F_T:F_T + 3] = 1.0
         rf = ri = None
@@ -84,7 +87,7 @@ class PoolState:
             sd, cfg, eye, rot, int(pix0), n_px, int(total), int(sample_base), fs,
             torch.zeros((6, m), dtype=torch.int32, device=dev),
             torch.zeros((n_px, 3), dtype=torch.float32, device=dev),
-            torch.zeros((4,), dtype=torch.int64, device=dev), rf, ri)
+            torch.zeros((4,), dtype=torch.int64, device=dev), rf, ri, row_step=int(row_step))
 
     @property
     def m(self) -> int:
@@ -114,7 +117,8 @@ class PoolState:
             if not 0 < self.total < 2 ** 31:
                 raise ValueError(f"queue of {self.total} samples: want 1 .. 2^31-1")
             s = kernels.scene_args(self.sd, int(self.cfg.bvh_stack_size))
-            r = kernels.render_args(self.eye, self.rot, self.cfg, self.sample_base, 0)
+            r = kernels.render_args(self.eye, self.rot, self.cfg, self.sample_base, 0,
+                                    self.row_step)
             q = kernels.PoolArgs(self.fs.data_ptr(), self.is_.data_ptr(),
                                  self.film.data_ptr(), self.cnt.data_ptr(),
                                  self.total, m, self.n_px, self.pix0,

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..core.film import check_window, window_pixels
 from ..utils import logging
 from ..utils.logging import span
 from . import kernels
@@ -51,34 +52,33 @@ def scratch_shape(n_px: int, spp: int) -> tuple[int, int]:
     return (max((n for _, n in wins), default=0) * max(0, int(spp)), 4)
 
 
-def _window(cfg, pix0: int, n_px) -> int:
-    """The window's pixel count (the rest of the film by default), checked."""
-    npix = cfg.width * cfg.height
-    n_px = npix - pix0 if n_px is None else int(n_px)
-    if not (0 <= pix0 and 0 <= n_px and pix0 + n_px <= npix):
-        raise ValueError(f"pixel window [{pix0}, {pix0 + n_px}) outside the film's "
-                         f"{npix} pixels")
+def _window(cfg, pix0: int, n_px, row_step: int = 1) -> int:
+    """The window's slot count (the rest of the film by default), checked
+    (core/film.check_window)."""
+    n_px = cfg.width * cfg.height - pix0 if n_px is None else int(n_px)
+    check_window(cfg.width, cfg.height, pix0, n_px, row_step)
     return n_px
 
 
 def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int = 0,
-                      n_px: int | None = None) -> torch.Tensor:
+                      n_px: int | None = None, row_step: int = 1) -> torch.Tensor:
     """The plain PyTorch version: [4, n_px] f32, rows 0-2 the radiance
-    sums over samples sample_base .. sample_base+spp-1 of the pixels pix0
-    .. pix0+n_px-1, row 3 the useful rays (integrator/wavefront.trace_radiance_p,
-    with the plain BVH walk on any device). While spans are recorded it
+    sums over samples sample_base .. sample_base+spp-1 of the window's
+    slots (``mega_render``), row 3 the useful rays
+    (integrator/wavefront.trace_radiance_p, with the plain BVH walk on any
+    device). While spans are recorded it
     adds its bounces to the counters ``ops.mega.bounces`` and
     ``ops.mega.sss_bounces``, as the kernel's stamps do."""
     from ..integrator.render import SCAN_LANES, render_batch
     from ..integrator.wavefront import nearest_planes_plain
 
-    n_px = _window(cfg, pix0, n_px)
+    n_px = _window(cfg, pix0, n_px, row_step)
     out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
     chunk = max(1, SCAN_LANES // max(spp, 1))
     counts = {} if logging.recording() else None
     for c0 in range(0, n_px, chunk):
-        ids = torch.arange(pix0 + c0, pix0 + min(c0 + chunk, n_px), dtype=torch.int64,
-                           device=sd.device)
+        slots = torch.arange(c0, min(c0 + chunk, n_px), dtype=torch.int64, device=sd.device)
+        ids = window_pixels(pix0, slots, row_step, cfg.width)
         rad, rays = render_batch(sd, eye, rot, ids, sample_base, cfg, spp,
                                  query=nearest_planes_plain, counts=counts)
         out[0:3, c0:c0 + ids.shape[0]] = rad.T
@@ -90,19 +90,21 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
 
 
 def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int, spp: int,
-                pix0: int = 0, n_px: int | None = None, stamps: list | None = None
-                ) -> torch.Tensor:
-    """Render ``spp`` samples of the pixel window pix0 .. pix0+n_px-1 (the
-    whole film by default) -> [4, n_px] f32 (radiance sums, useful rays),
-    column j for pixel pix0 + j. ``eye`` [3] and ``rot`` [4, 4] are the
-    camera. ``stamps``, a list, receives one int64 [5] device tensor a
-    launch (start, dry counter, end: %globaltimer ns; then the bounces and
-    the SSS bounces; ``count_stamps``)."""
+                pix0: int = 0, n_px: int | None = None, stamps: list | None = None,
+                row_step: int = 1) -> torch.Tensor:
+    """Render ``spp`` samples of the pixel window of ``n_px`` slots from
+    pixel ``pix0`` at ``row_step`` (core/film.window_pixels: pix0 .. pix0 +
+    n_px - 1 at step 1; the whole film by default) -> [4, n_px] f32
+    (radiance sums, useful rays), column j for the window's slot j.
+    ``eye`` [3] and ``rot`` [4, 4] are the camera. ``stamps``, a list,
+    receives one int64 [5] device tensor a launch (start, dry counter,
+    end: %globaltimer ns; then the bounces and the SSS bounces;
+    ``count_stamps``)."""
     if sd.device.type == "cpu":
-        return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px)
-    n_px = _window(cfg, pix0, n_px)
+        return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px, row_step)
+    n_px = _window(cfg, pix0, n_px, row_step)
     s = kernels.scene_args(sd, int(cfg.bvh_stack_size))
-    r = kernels.render_args(eye, rot, cfg, sample_base, spp)
+    r = kernels.render_args(eye, rot, cfg, sample_base, spp, row_step)
     lib = kernels.library()
     out = torch.empty((4, n_px), dtype=torch.float32, device=sd.device)
     wins = launch_windows(n_px, spp)
@@ -114,7 +116,7 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
             st = torch.full((5,), _NEVER, dtype=torch.int64, device=sd.device)
             st[2:] = 0
             stamps.append(st)
-        rc = lib.mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0) + a, n,
+        rc = lib.mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0), a, n,
                              ctypes.c_void_p(out.data_ptr() + 4 * a), n_px, kernels.ptr(part),
                              ctypes.c_void_p(next_item.data_ptr() + 4 * i),
                              None if st is None else kernels.ptr(st), kernels.stream(sd.device))

@@ -6,8 +6,9 @@ Replaces the JAX package's ops/pallas/spawn_front.py ``spawn_primary``
 lanes (not active) take the next queue samples in lane order:
 ``k`` = inclusive count of fresh lanes up to the lane, ``index = next + k
 - 1``, ``got = fresh & index < total``, ``slot = index % n_px``, ``pix =
-pix0 + slot`` (the state's pixel window, ops/lanes.py), ``smp = index //
-n_px + sample_base``; the queue advances by
+window_pixels(pix0, slot, row_step, width)`` (the state's pixel window,
+ops/lanes.py; ``pix0 + slot`` at step 1), ``smp = index // n_px +
+sample_base``; the queue advances by
 ``min(fresh, total - next)``. A lane that got a sample traces its
 jittered camera ray: a hit starts its path (bounce 0, T = 1, L = 0, le0 =
 the hit's emission), a miss adds the sky to the film, finishes the sample
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..core import camera as camera_mod
+from ..core.film import window_pixels
 from ..core.vecmath import V3, vnormalize, vrows, vstack, vwhere
 from ..scene import envmap
 from . import kernels, scanops, trace
@@ -40,7 +42,8 @@ def spawn_primary_plain(st: PoolState, aux: torch.Tensor | None = None) -> None:
     got = fresh & (index < st.total)
     new_slot = torch.remainder(index, st.n_px)
     slot = torch.where(got, new_slot, st.is_[I_SLOT].long())
-    pix = torch.where(got, new_slot + st.pix0, st.is_[I_PIX].long())
+    pix = torch.where(got, window_pixels(st.pix0, new_slot, st.row_step, cfg.width),
+                      st.is_[I_PIX].long())
     smp = torch.where(got, torch.div(index, st.n_px, rounding_mode="floor")
                       + st.sample_base, st.is_[I_SMP].long())
     st.is_[I_SLOT] = slot.to(torch.int32)

@@ -4,33 +4,41 @@ The JAX package's parallel/sharding.py runs one controller over a device
 mesh with ``shard_map`` and ``psum``. Here each rank is a process with one
 device, and the mesh is an explicit ``[tile, spp]`` grid of ranks:
 
-- **film tiles**: tile rank t renders the pixel window [t * shard_px,
-  min((t + 1) * shard_px, npix)), shard_px = ceil(npix / n_tile), with no
-  communication, through the engine's window function
-  (integrator/render.py ``ENGINES``);
-- **samples**: spp rank s renders the same window at another sample
+- **film tiles**: the film's rows are dealt round-robin: tile rank t
+  renders rows t, t + n_tile, t + 2 n_tile, .. < H (``ceil((H - t) /
+  n_tile)`` rows, so any height splits), with no communication, in one
+  call of the engine's window function (integrator/render.py ``ENGINES``,
+  a window of whole rows ``n_tile`` apart). Neighbouring rows cost nearly
+  the same, so each rank carries ~1/n_tile of every region's cost (the
+  statue's rows too) for any camera and scene, with no estimate of a
+  row's cost; contiguous row tiles left one rank the statue while the
+  others waited;
+- **samples**: spp rank s renders the same rows at another sample
   offset, and the sums are reduced over the ranks of the tile row.
 
 Both compose in one mesh. Collectives are ``all_reduce`` alone, over a
 film-sized buffer: the spp reduction (JAX ``psum('spp')``) is an
 ``all_reduce`` of the window over the rank's **spp group** (its tile
-row); ``gather_film`` (JAX ``all_gather('tile')``) writes the window into
-a zero film of ``n_tile * shard_px`` rows and ``all_reduce``s it over the
-rank's **tile group** (its spp column), which adds exact zeros and so
-changes no bit. This works alike under NCCL and gloo: gloo has
-``all_reduce`` for CUDA tensors but no ``all_gather``, and ranks that
-share a card cannot use NCCL, which refuses two ranks on one GPU. (When
-``stats`` are asked for, one more ``all_reduce`` of a float64 vector sums
-the ranks' useful rays and carries each rank's window time to every
-rank.)
+row); the film's gather writes the rank's rows into a zero film at rows
+t::n_tile and ``all_reduce``s it over the rank's **tile group** (its spp
+column), which adds exact zeros and so changes no bit. This works alike
+under NCCL and gloo: gloo has ``all_reduce`` for CUDA tensors but no
+``all_gather``, and ranks that share a card cannot use NCCL, which
+refuses two ranks on one GPU. (When ``stats`` are asked for, one more
+``all_reduce`` of a float64 vector sums the ranks' useful rays and
+carries each rank's window time to every rank.) ``gather_film`` and
+``render_batch_sharded`` keep the JAX package's contiguous layout (tile
+t holds shard rows t*k ..; JAX ``all_gather('tile')``), which a caller of
+a sharded step over its own ``pixel_ids`` expects.
 
 Under a profiler (``utils/logging.py``) each rank records the span
 ``parallel.sharding.window`` around the render of its tile window and
 ``parallel.sharding.all_reduce`` around each film ``all_reduce``, the
 wait for the group's slowest rank included; rank 0 counts
-``parallel.tile_us_max`` (the slowest rank's window, in us, each image),
-``parallel.tile_us_sum`` (every rank's) and ``parallel.tile_windows``
-(ranks x images).
+``parallel.tile_rows`` (its window's film rows, each image: the layout in
+force), ``parallel.tile_us_max`` (the slowest rank's window, in us, each
+image), ``parallel.tile_us_sum`` (every rank's) and
+``parallel.tile_windows`` (ranks x images).
 
 Inside a rank each pixel's samples are summed in ascending order, so a
 mesh without an spp axis renders the single-device film bit for bit;
@@ -363,12 +371,12 @@ def render_batch_sharded(sd, eye, rot, pixel_ids, sample_base: int, cfg: RenderC
     return _all_reduce(out, mesh.spp_group)
 
 
-def _window(npix: int, mesh: Mesh) -> Tuple[int, int, int]:
-    """(shard_px, first pixel, pixels) of this rank's tile window."""
-    shard = -(-npix // mesh.shape["tile"])
+def _window(height: int, mesh: Mesh) -> Tuple[int, int, int]:
+    """(first row, rows, row step) of this rank's tile window: tile rank t
+    of n_tile takes the film rows t, t + n_tile, .. < ``height``."""
+    n_tile = mesh.shape["tile"]
     t, _ = mesh.coords
-    p0 = min(t * shard, npix)
-    return shard, p0, min(shard, npix - p0)
+    return t, len(range(t, height, n_tile)), n_tile
 
 
 def _check(cfg: RenderConfig, mesh: Mesh) -> None:
@@ -389,29 +397,36 @@ def _window_span(timer: _Clock):
         yield
 
 
-def _film_from_window(acc: torch.Tensor, shard: int, cfg: RenderConfig, mesh: Mesh,
+def _film_from_window(acc: torch.Tensor, cfg: RenderConfig, mesh: Mesh,
                       clock: _Clock) -> torch.Tensor:
-    """This rank's window sums [n_px, 3] -> the full film [H, W, 3]."""
-    npix = cfg.width * cfg.height
-    if acc.shape[0] < shard and mesh.shape["tile"] > 1:  # the ragged last window
-        acc = torch.cat([acc, acc.new_zeros((shard - acc.shape[0], 3))])
-    return gather_film(acc, mesh, clock)[:npix].reshape(cfg.height, cfg.width, 3)
+    """This rank's window sums [rows * W, 3] -> the full film [H, W, 3]:
+    its rows written at rows t::n_tile of a zero film, summed over the
+    tile group (exact: one rank holds each row)."""
+    rows = acc.reshape(-1, cfg.width, 3)
+    n_tile = mesh.shape["tile"]
+    if n_tile == 1:
+        return rows
+    t, _ = mesh.coords
+    film = rows.new_zeros((cfg.height, cfg.width, 3))
+    film[t::n_tile] = rows
+    return _all_reduce(film, mesh.tile_group, clock)
 
 
 def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
                             film: Optional[Film] = None,
                             stats: Optional[dict] = None) -> Film:
-    """The film over the mesh, film tiles over 'tile' and samples over
+    """The film over the mesh, film rows dealt over 'tile' and samples over
     'spp': spp rank s renders cfg.spp / n_spp samples from ``film.count +
-    s * cfg.spp / n_spp`` of its tile window through the engine's window
-    function (``render.window_fn``); the new sums are reduced over 'spp',
-    added to the film's window and gathered. Returns the full film on every
-    rank. Raises ``ValueError`` when cfg.spp does not divide by the spp
-    axis, for an unknown engine, and for any integrator but 'full' (the
-    JAX function renders NEE on its scan route whatever ``cfg.integrator``
-    asks). ``stats``, when given, receives ``rays`` (the mesh's useful
-    rays), ``window_ms`` (each rank's render of its tile window, by global
-    rank: device time on the card, the host clock on the CPU), this rank's
+    s * cfg.spp / n_spp`` of its tile window (the rows t, t + n_tile, ..)
+    in one call of the engine's window function (``render.window_fn``);
+    the new sums are reduced over 'spp', added to the film's rows and
+    gathered. Returns the full film on every rank. Raises ``ValueError``
+    when cfg.spp does not divide by the spp axis, for an unknown engine,
+    and for any integrator but 'full' (the JAX function renders NEE on its
+    scan route whatever ``cfg.integrator`` asks). ``stats``, when given,
+    receives ``rays`` (the mesh's useful rays), ``window_ms`` (each rank's
+    render of its tile window, by global rank: device time on the card,
+    the host clock on the CPU), this rank's
     ``allreduce_ms``/``allreduce_calls``/``allreduce_bytes`` (the film's
     all_reduce calls) and ``backend``. Every rank of the group passes
     ``stats`` or none does: it adds one collective."""
@@ -422,19 +437,23 @@ def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
     n_spp = mesh.shape["spp"]
     _, s = mesh.coords
     spp_local = cfg.spp // n_spp
-    shard, p0, n_px = _window(cfg.width * cfg.height, mesh)
+    row0, rows, step = _window(cfg.height, mesh)
+    if _rank() == 0:
+        logging.count("parallel.tile_rows", rows)
     clock, timer = _Clock(sd.device), _Clock(sd.device)
-    win = film.accum.reshape(-1, 3)[p0:p0 + n_px]
+    win = film.accum[row0::step].reshape(-1, 3)
+    pix0 = row0 * cfg.width
     if n_spp == 1:  # as the single-device engine: the samples added to the film in order
         acc = win.clone()
         with _window_span(timer):
-            rays = window(sd, cam, cfg, acc, p0, film.count, cfg.spp)
+            rays = window(sd, cam, cfg, acc, pix0, film.count, cfg.spp, row_step=step)
     else:
         new = torch.zeros_like(win)
         with _window_span(timer):
-            rays = window(sd, cam, cfg, new, p0, film.count + s * spp_local, spp_local)
+            rays = window(sd, cam, cfg, new, pix0, film.count + s * spp_local, spp_local,
+                          row_step=step)
         acc = win + _all_reduce(new, mesh.spp_group, clock)
-    accum = _film_from_window(acc, shard, cfg, mesh, clock)
+    accum = _film_from_window(acc, cfg, mesh, clock)
     _finish_stats(stats, rays, clock, timer, sd.device)
     return Film(accum, film.count + cfg.spp)
 

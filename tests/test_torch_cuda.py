@@ -832,6 +832,57 @@ def test_pool_window_matches_the_mega_window(jade_cuda):
                                    atol=1e-4 * float(acc_m.abs().max()))
 
 
+@pytest.mark.parametrize("part", ["mega", "spawn"])
+def test_rows_dealt_four_apart_are_bit_equal_to_the_whole_film(jade_cuda, part):
+    """The windows of a --mesh 4x1's tile ranks (film rows t, t + 4, ..;
+    row_step 4) at 64^2 x 16 spp on the statue view: the megakernel's sums
+    and useful rays bit for bit the stride-1 whole film's dealt pixels;
+    the pool's spawn over a dealt window's queue gives each of its samples
+    the camera ray, hit, sky and lane state of the same (pixel, sample) in
+    a stride-1 whole-film queue, and the windows together its useful rays
+    and misses."""
+    from jaderaytracerendering_tpu_torch.cli.rmse_gate import statue_view
+    from jaderaytracerendering_tpu_torch.core.film import window_pixels
+    from jaderaytracerendering_tpu_torch.ops.lanes import C_DONE, I_ACTIVE, I_HIT, I_PIX, I_SMP
+
+    ds, sd = jade_cuda
+    cam = dataclasses.replace(ds.camera)
+    statue_view(cam)
+    w, h, spp, step = 64, 64, 16, 4
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=5)
+    if part == "mega":
+        eye, rot = camera_mod.camera_tensors(cam, "cpu")
+        whole = megak.mega_render(sd, eye, rot, cfg, 3, spp)
+    else:
+        eye, rot = camera_mod.camera_tensors(cam, "cuda")
+        whole = PoolState.create(sd, cfg, eye, rot, w * h * spp, w * h * spp, 3)
+        aux_whole = torch.empty((8, whole.m), device="cuda")
+        spawn_front.spawn_primary(whole, aux_whole)
+        rays = misses = 0
+    for t in range(step):
+        n_px = len(range(t, h, step)) * w
+        ids = window_pixels(t * w, torch.arange(n_px, device="cuda"), step, w)
+        if part == "mega":
+            win = megak.mega_render(sd, eye, rot, cfg, 3, spp, t * w, n_px, row_step=step)
+            assert torch.equal(win, whole[:, ids]), t
+            continue
+        st = PoolState.create(sd, cfg, eye, rot, n_px * spp, n_px * spp, 3, t * w, n_px, step)
+        aux = torch.empty((8, st.m), device="cuda")
+        spawn_front.spawn_primary(st, aux)
+        lane = torch.arange(st.m, device="cuda")
+        same = (lane // n_px) * (w * h) + ids[lane % n_px]  # its whole-film queue lane
+        assert torch.equal(st.is_[I_PIX].long(), ids[lane % n_px]), t
+        assert torch.equal(aux, aux_whole[:, same]), t
+        for row in (I_ACTIVE, I_HIT, I_PIX, I_SMP):
+            assert torch.equal(st.is_[row], whole.is_[row, same]), (t, row)
+        assert torch.equal(st.fs, whole.fs[:, same]), t
+        rays += int(st.cnt[C_RAYS])
+        misses += int(st.cnt[C_DONE])
+    if part == "spawn":
+        assert (rays, misses) == (int(whole.cnt[C_RAYS]), int(whole.cnt[C_DONE]))
+        assert 0 < misses < rays  # the view holds sky and the statue's hits
+
+
 @pytest.mark.parametrize("mesh,engine", [("2x1", "mega"), ("1x2", "mega"), ("2x1", "pool")])
 def test_two_ranks_on_one_card_over_gloo(jade_cuda, tmp_path, mesh, engine):
     """The render CLI with --mesh, its 2 ranks sharing card 0 over gloo,

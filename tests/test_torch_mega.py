@@ -75,9 +75,10 @@ def _spy_calls(monkeypatch) -> list:
     pix0, n_px) of each call."""
     seen, real = [], megak.mega_render
 
-    def spy(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None):
+    def spy(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None, row_step=1):
         seen.append((sample_base, spp, pix0, n_px))
-        return real(sd, eye, rot, cfg, sample_base, spp, pix0, n_px, stamps=stamps)
+        return real(sd, eye, rot, cfg, sample_base, spp, pix0, n_px, stamps=stamps,
+                    row_step=row_step)
 
     monkeypatch.setattr(megak, "mega_render", spy)
     return seen
@@ -85,13 +86,14 @@ def _spy_calls(monkeypatch) -> list:
 
 class _FakeLibrary:
     """The megakernel's C interface on the host: each ``mega_render``
-    launch appends (first pixel, pixels, spp) and succeeds."""
+    launch appends (the window's first pixel, the launch's first slot,
+    slots, spp, row step) and succeeds."""
 
     def __init__(self):
         self.launches = []
 
-    def mega_render(self, s, r, pix0, n, out, ld, part, next_item, stamps, stream):
-        self.launches.append((pix0, n, r._obj.spp))
+    def mega_render(self, s, r, pix0, slot0, n, out, ld, part, next_item, stamps, stream):
+        self.launches.append((pix0, slot0, n, r._obj.spp, r._obj.row_step))
         return 0
 
 
@@ -110,54 +112,52 @@ def fake_card(monkeypatch):
     meta = types.SimpleNamespace(device=torch.device("meta"))
     seen, real = [], megak.mega_render
 
-    def on_meta(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None):
-        seen.append((sample_base, spp, pix0, n_px))
-        real(meta, eye, rot, cfg, sample_base, spp, pix0, n_px)
+    def on_meta(sd, eye, rot, cfg, sample_base, spp, pix0=0, n_px=None, stamps=None,
+                row_step=1):
+        seen.append((sample_base, spp, pix0, n_px, row_step))
+        real(meta, eye, rot, cfg, sample_base, spp, pix0, n_px, row_step=row_step)
         return torch.zeros((4, n_px))
 
     monkeypatch.setattr(megak, "mega_render", on_meta)
     return seen, lib
 
 
-def _tile_windows(npix: int, n_tile: int) -> list:
-    """(first pixel, pixels) of each rank's tile window of a ``--mesh
-    {n_tile}x1``."""
-    from jaderaytracerendering_tpu_torch.parallel import sharding
-
-    grid = np.arange(n_tile).reshape(n_tile, 1)
-    return [sharding._window(npix, sharding.Mesh(grid, sharding.AXES, r, None, None))[1:]
-            for r in range(n_tile)]
-
-
-# (film side, first pixel, pixels, spp) -> the launches of the window's
-# one call: 256^2 x 256 in one launch of 2^24 items; 1024^2 x 256 in four,
-# the rows of a --mesh 4x1's tiles; one such tile in one launch of 2^26
+# (film side, first pixel, slots, spp, row step) -> the launches of the
+# window's one call as (first pixel, slots): 256^2 x 256 in one launch of
+# 2^24 items; 1024^2 x 256 in four of 256 rows; a --mesh 4x1 tile (rank 1's
+# 256 rows 1, 5, .., dealt 4 apart) in one launch of 2^26; the same rows
+# at 512 spp in two launches, the second from the window's row 128 (film
+# row 1 + 4 x 128)
 PLANS = [
-    (256, 0, 1 << 16, 256, [(0, 1 << 16)]),
-    (1024, 0, 1 << 20, 256, _tile_windows(1 << 20, 4)),
-    (1024, 1 << 18, 1 << 18, 256, [(1 << 18, 1 << 18)]),
-    (1024, 0, 1 << 20, 64, [(0, 1 << 20)]),
+    (256, 0, 1 << 16, 256, 1, [(0, 1 << 16)]),
+    (1024, 0, 1 << 20, 256, 1, [(a, 1 << 18) for a in range(0, 1 << 20, 1 << 18)]),
+    (1024, 1024, 1 << 18, 256, 4, [(1024, 1 << 18)]),
+    (1024, 1024, 1 << 18, 512, 4, [(1024, 1 << 17), (513 * 1024, 1 << 17)]),
+    (1024, 0, 1 << 20, 64, 1, [(0, 1 << 20)]),
 ]
 
 
-@pytest.mark.parametrize("side,pix0,n_px,spp,launches", PLANS)
-def test_a_window_is_one_call_split_by_pixels_only(fake_card, side, pix0, n_px, spp,
+@pytest.mark.parametrize("side,pix0,n_px,spp,row_step,launches", PLANS)
+def test_a_window_is_one_call_split_by_pixels_only(fake_card, side, pix0, n_px, spp, row_step,
                                                    launches):
     """``render_window_mega`` makes one ``mega_render`` call for all of a
-    window's samples; the call launches the windows of ``launch_windows``
-    (at most MAX_ITEMS items each), every one at the window's spp."""
+    window's samples; the call launches the slot windows of
+    ``launch_windows`` (at most MAX_ITEMS items each), every one at the
+    window's spp, first pixel and row step, so that a launch's first slot
+    maps to its pixel as every other slot does (core/film.window_pixels)."""
+    from jaderaytracerendering_tpu_torch.core.film import window_pixels
     from jaderaytracerendering_tpu_torch.integrator import mega as tmega
 
     seen, lib = fake_card
     cam = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32)).camera
     cfg = TConfig(width=side, height=side, spp=spp)
     acc = torch.zeros((n_px, 3))
-    tmega.render_window_mega(None, cam, cfg, acc, pix0, 7, spp)
-    assert seen == [(7, spp, pix0, n_px)]
-    assert [(a - pix0, n) for a, n, _ in lib.launches] == megak.launch_windows(n_px, spp)
-    assert [(a, n) for a, n, _ in lib.launches] == launches
-    assert {k for _, _, k in lib.launches} == {spp}
-    assert max(n for _, n, _ in lib.launches) * spp <= megak.MAX_ITEMS
+    tmega.render_window_mega(None, cam, cfg, acc, pix0, 7, spp, row_step=row_step)
+    assert seen == [(7, spp, pix0, n_px, row_step)]
+    assert [(a, n) for _, a, n, _, _ in lib.launches] == megak.launch_windows(n_px, spp)
+    assert [(window_pixels(p, a, st, side), n) for p, a, n, _, st in lib.launches] == launches
+    assert {(p, k, st) for p, _, _, k, st in lib.launches} == {(pix0, spp, row_step)}
+    assert max(n for _, _, n, _, _ in lib.launches) * spp <= megak.MAX_ITEMS
 
 
 def test_the_samples_split_over_calls_only_past_max_items(fake_card, monkeypatch):
@@ -171,8 +171,8 @@ def test_the_samples_split_over_calls_only_past_max_items(fake_card, monkeypatch
     cam = tdemo.jade_scene(n_buddha_tris=300, env_shape=(16, 32)).camera
     cfg = TConfig(width=4, height=4, spp=256)
     tmega.render_window_mega(None, cam, cfg, torch.zeros((3, 3)), 5, 11, 256)
-    assert seen == [(11, 100, 5, 3), (111, 100, 5, 3), (211, 56, 5, 3)]
-    assert lib.launches == [(p, 1, k) for k in (100, 100, 56) for p in (5, 6, 7)]
+    assert seen == [(11, 100, 5, 3, 1), (111, 100, 5, 3, 1), (211, 56, 5, 3, 1)]
+    assert lib.launches == [(5, a, 1, k, 1) for k in (100, 100, 56) for a in (0, 1, 2)]
 
 
 def test_the_launches_counter_records_only_under_the_profiler(fake_card):

@@ -164,6 +164,8 @@ def test_tile_counters_bound_the_slowest_tile(ranks, key):
     c = ranks[0][key]["counters"]
     slowest, total = c["parallel.tile_us_max"], c["parallel.tile_us_sum"]
     assert c["parallel.tile_windows"] == WORLD * PROFILED_IMAGES
+    n_tile = int(key.split("_")[1].split("x")[0])  # rank 0 renders rows 0, n_tile, ..
+    assert c["parallel.tile_rows"] == PROFILED_IMAGES * len(range(0, SIZE["height"], n_tile))
     assert total / WORLD <= slowest <= total  # the slowest tile is at least the mean
     us = [round(w * 1e3) for w in ranks[0][key]["profiled_stats"]["window_ms"]]
     assert total == pytest.approx(sum(us), abs=WORLD * PROFILED_IMAGES)

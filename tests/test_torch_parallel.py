@@ -7,16 +7,18 @@ a ``file://`` rendezvous in the test's temporary directory) over the JAX
 tests' setup (tests/test_parallel.py): ``demo.tiny_scene()``, 8x8, depth
 2, traversal 'bvh', both packages' scenes built by the NumPy SAH builder.
 It renders the meshes (4, 1), (2, 2) and (1, 4) through the engines
-scan, pool and mega at 4 spp (spp_batch 2), a resumed render (4 spp, then
-4 more), the scan at 6 spp over an spp axis of 2 (3 samples a rank, in
-spp_batch steps of 2 and 1) and a spp that does not divide by the spp
-axis, and saves every rank's films.
+scan, pool and mega at 4 spp (spp_batch 2), scan and mega on the (4, 1)
+mesh at a ragged height (11 rows: ranks of 3, 3, 3 and 2 dealt rows), a
+resumed render (4 spp, then 4 more), the scan at 6 spp over an spp axis
+of 2 (3 samples a rank, in spp_batch steps of 2 and 1) and a spp that
+does not divide by the spp axis, and saves every rank's films.
 
 Tolerances: bit for bit against the single-device film of the same
 engine on tile-only meshes for scan and mega (each pixel's samples are
 summed in ascending order on one rank, and the gather adds exact zeros;
-the 16-pixel windows start on torch's CPU vector boundaries, where the
-plain versions' ``pow`` and ``atan2`` round as in the whole film);
+every window is whole 8-pixel rows, whose lanes fill torch's 16-float CPU
+vectors as the whole film's do, and the plain versions' ``pow`` and
+``atan2`` round there as in the whole film);
 rtol 1e-4 + atol 1e-5 on the mean film elsewhere (the spp split sums its
 halves in another order; the pool's film adds run in another order),
 the JAX tests' own bound (tests/test_parallel.py). Against the JAX
@@ -55,6 +57,7 @@ WORLD = 4
 MESHES = [(4, 1), (2, 2), (1, 4)]
 ENGINES = ["scan", "pool", "mega"]
 SIZE = dict(width=8, height=8, spp=4, spp_batch=2, max_depth=2, traversal="bvh")
+RAGGED = dict(height=11)  # rows dealt over 4 tiles: 3, 3, 3, 2
 RTOL, ATOL = 1e-4, 1e-5
 TIMEOUT = 300
 
@@ -90,6 +93,9 @@ for shape in json.loads(sys.argv[6]):
     mesh = sh.make_mesh(shape)
     for engine in json.loads(sys.argv[7]):
         run(f"{engine}_{shape[0]}x{shape[1]}", mesh, cfg.replace(engine=engine))
+for engine in ("scan", "mega"):
+    run(f"{engine}_4x1_ragged", sh.make_mesh((4, 1)),
+        cfg.replace(engine=engine, **json.loads(sys.argv[8])))
 mesh = sh.make_mesh((2, 2))
 first = run("resume_first", mesh, cfg.replace(engine="scan"))
 run("resume", mesh, cfg.replace(engine="scan"), film=first)
@@ -124,7 +130,7 @@ def _start_workers(tmp):
     worker.write_text(_WORKER)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     env.pop("LOCAL_RANK", None)
-    args = [json.dumps(SIZE), json.dumps(MESHES), json.dumps(ENGINES)]
+    args = [json.dumps(SIZE), json.dumps(MESHES), json.dumps(ENGINES), json.dumps(RAGGED)]
     return [subprocess.Popen([sys.executable, str(worker), str(r), str(WORLD),
                               str(tmp / "rendezvous"), str(tmp)] + args,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -176,6 +182,11 @@ def single():
         f = trender.render_film(sd, ds.camera, TConfig(**SIZE).replace(engine=engine, spp=spp),
                                 stats=stats)
         out[engine, spp] = (f.accum.numpy(), stats["rays"])
+    for engine in ("scan", "mega"):
+        stats = {}
+        f = trender.render_film(sd, ds.camera, TConfig(**SIZE, engine=engine).replace(**RAGGED),
+                                stats=stats)
+        out[engine, "ragged"] = (f.accum.numpy(), stats["rays"])
     return out
 
 
@@ -183,12 +194,17 @@ def _key(engine, shape):
     return f"{engine}_{shape[0]}x{shape[1]}"
 
 
+@pytest.mark.parametrize("height", ["8", "ragged"])
 @pytest.mark.parametrize("engine", ["scan", "mega"])
-def test_tile_only_mesh_is_bit_equal_to_one_device(runs, single, engine):
+def test_tile_only_mesh_is_bit_equal_to_one_device(runs, single, engine, height):
+    """The 4x1 mesh's film (rows dealt round-robin) equals the one-device
+    film bit for bit, at 8 rows and at 11 (ranks of 3, 3, 3 and 2 rows)."""
     films, meta = runs[0][0]
-    accum, rays = single[engine, 4]
-    np.testing.assert_array_equal(films[_key(engine, (4, 1))], accum)
-    assert meta[_key(engine, (4, 1))]["rays"] == rays
+    key = _key(engine, (4, 1)) + ("_ragged" if height == "ragged" else "")
+    accum, rays = single[engine, 4 if height == "8" else "ragged"]
+    assert films[key].shape == accum.shape
+    np.testing.assert_array_equal(films[key], accum)
+    assert meta[key]["rays"] == rays
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
