@@ -58,13 +58,15 @@
 //   draw key, and the output is indexed by slot. A launch runs slots
 //   slot0 .. of its window. A multi-device render runs one window a tile
 //   rank: its film rows dealt round-robin.
-// - Optional stamps (five u64, or null): three of %globaltimer ns, the
+// - Optional stamps (seven u64, or null): three of %globaltimer ns, the
 //   warps' first start (atomicMin), the first handout that finds the
 //   counter dry (atomicMin), the warps' last exit (atomicMax); then two
 //   counts, the bounces resolved and those whose branch is SSS entry or
-//   exit (each thread counts in registers; at exit each warp adds its
-//   sums, one atomicAdd a count). ops/mega.py reads them as the launch's
-//   time, its tail and its bounces.
+//   exit, and, in the HR = true instance alone, two more: the bounces
+//   whose branch is direct refraction and their march steps (each one
+//   walk). Each thread counts in registers; at exit each warp adds its
+//   sums, one atomicAdd a count. ops/mega.py reads them as the launch's
+//   time, its tail, its bounces and its marches.
 // - The packed walk tables and the shared-memory stack of path.cuh.
 // Direct refraction (DIR_REFRACT): the kernel is a template on HR; the
 // march (refract_march_dev, with its own walk, the second call site, in
@@ -124,6 +126,7 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int slot0, int n_items,
   w.sp = 0;
   bool walking = false;
   unsigned n_bounce = 0, n_sss = 0;  // bounces resolved, and of them SSS entry or exit
+  unsigned n_ref = 0, n_march = 0;   // HR: direct refraction bounces, their march steps
 
   auto enter_bounce = [&]() {
     nray += s.n_emit + 2;
@@ -182,7 +185,8 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int slot0, int n_items,
             step = st_cont;
             consumed = false;
           } else if (dirref) {  // the continuation leaves the medium at the march's exit
-            refract_march_dev(s, r, hb, p, f);
+            n_march += refract_march_dev(s, r, hb, p, f);
+            ++n_ref;
           }
           if (!f.emit_break) bounce_dirs_dev<HR>(s, hb, p, f);
         }
@@ -290,10 +294,18 @@ mega_render_kernel(SceneArgs s, RenderArgs r, int pix0, int slot0, int n_items,
   if (stamps) {
     n_bounce = __reduce_add_sync(0xffffffffu, n_bounce);
     n_sss = __reduce_add_sync(0xffffffffu, n_sss);
+    if (HR) {
+      n_ref = __reduce_add_sync(0xffffffffu, n_ref);
+      n_march = __reduce_add_sync(0xffffffffu, n_march);
+    }
     if (lane == 0) {
       atomicMax(&stamps[2], global_ns());
       atomicAdd(&stamps[3], (unsigned long long)n_bounce);
       atomicAdd(&stamps[4], (unsigned long long)n_sss);
+      if (HR) {
+        atomicAdd(&stamps[5], (unsigned long long)n_ref);
+        atomicAdd(&stamps[6], (unsigned long long)n_march);
+      }
     }
   }
 }
@@ -326,9 +338,9 @@ extern "C" {
 // Radiance sums [3, n_px] and useful rays [1, n_px] of the slots slot0 ..
 // slot0 + n_px - 1 of the pixel window from pix0 (window_pixel) into out
 // (rows 0-3, row stride ld >= n_px). part: the n_px x spp float4 partials;
-// next_item: one int, zero at the launch; stamps: null, or five u64 set to
-// (max, max, 0, 0, 0) (the wrapper's). The megakernel, then the fold, on
-// the stream.
+// next_item: one int, zero at the launch; stamps: null, or seven u64 set to
+// (max, max, 0, 0, 0, 0, 0) (the wrapper's; the HR = false instance leaves
+// the last two at 0). The megakernel, then the fold, on the stream.
 int mega_render(const SceneArgs* s, const RenderArgs* r, int pix0, int slot0, int n_px,
                 float* out, int ld, float4* part, int* next_item, unsigned long long* stamps,
                 void* stream) {

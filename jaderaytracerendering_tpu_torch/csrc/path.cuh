@@ -617,9 +617,9 @@ __device__ void bounce_front_dev(const SceneArgs& s, const RenderArgs& r, uint32
 // surface, absorb rate^t, refract out (x (1 - Fresnel) x 1.25) or reflect
 // inside (total internal reflection, or a draw below
 // internal_reflect_rate: x Fresnel x 5). Writes f.ref_*; a trace that
-// hits nothing escapes.
-__device__ void refract_march_dev(const SceneArgs& s, const RenderArgs& r, uint32_t hb,
-                                  const Path& p, Front& f) {
+// hits nothing escapes. Returns the march's steps: its traces, each one walk.
+__device__ int refract_march_dev(const SceneArgs& s, const RenderArgs& r, uint32_t hb,
+                                 const Path& p, Front& f) {
   float miu = s.mat_refract_index[s.tri_obj[p.tri]];
   V normal = load3(s.tri_norm, p.tri);
   float r0 = schlick_r0(miu);
@@ -631,9 +631,11 @@ __device__ void refract_march_dev(const SceneArgs& s, const RenderArgs& r, uint3
   V src = p.src;
   int excl = p.tri;
   bool escaped = false;
+  int steps = 0;
   for (int i = 0; i < r.max_refract; ++i) {
     float t;
     int idx;
+    ++steps;
     if (!trace(s, src, rdir, excl, false, t, idx)) {
       escaped = true;
       break;
@@ -662,6 +664,7 @@ __device__ void refract_march_dev(const SceneArgs& s, const RenderArgs& r, uint3
   f.ref_rate = rate;
   f.ref_last = excl;
   f.ref_escaped = escaped;
+  return steps;
 }
 
 // The HDR NEE direction and the continuation direction of a path that

@@ -49,7 +49,8 @@ def render_window_mega(sd, cam, cfg: RenderConfig, acc, pix0: int, sample_base: 
     nothing goes into ``stats``. While
     spans are recorded the launches' stamps are read after the rays' sync
     into the counters ``ops.mega.launch_us``, ``ops.mega.tail_us``,
-    ``ops.mega.bounces`` and ``ops.mega.sss_bounces``."""
+    ``ops.mega.bounces``, ``ops.mega.sss_bounces``,
+    ``ops.mega.refract_bounces`` and ``ops.mega.march_steps``."""
     eye, rot = host_camera(cam)
     n_px = acc.shape[0]
     rays = torch.zeros((), dtype=torch.float64, device=acc.device)

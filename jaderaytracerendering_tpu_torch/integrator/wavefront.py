@@ -128,7 +128,7 @@ class Refr(_t.NamedTuple):
 
 
 def refract_march(alive_ref, tri, miu, normal: V3, ray_src: V3, out_dir: V3, sd, cfg,
-                  u_site, query) -> Refr:
+                  u_site, query, counts: _t.Optional[dict] = None) -> Refr:
     """DIR_REFRACT internal march (PathTrace.cu:1180-1234; the JAX
     package's ``_refract_march``): refract into the medium, then up to
     ``cfg.max_refract_bounces`` steps: trace to the next surface,
@@ -136,7 +136,8 @@ def refract_march(alive_ref, tri, miu, normal: V3, ray_src: V3, out_dir: V3, sd,
     reflect inside (total internal reflection, or a draw below
     ``internal_reflect_rate``: x Fresnel x5). ``u_site(site)`` draws the
     bounce's uniform for a site; ``query`` is the ray query. Lanes stop
-    once they exit or escape; the loop ends when none is left."""
+    once they exit or escape; the loop ends when none is left. ``counts``,
+    a dict, gets each step's tracing lanes added to ``"march_steps"``."""
     r0 = sampling.schlick_r0(miu)
     fres_i = sampling.fresnel_entry(r0, torch.abs(vdot(normal, out_dir)))
     rdir, _ = sampling.refract_dir_p(-out_dir, normal, torch.reciprocal(miu))
@@ -151,6 +152,8 @@ def refract_march(alive_ref, tri, miu, normal: V3, ray_src: V3, out_dir: V3, sd,
         live = alive_ref & ~exited & ~escaped
         if not bool(live.any()):
             break
+        if counts is not None:
+            counts["march_steps"] = counts.get("march_steps", 0) + live.sum()
         # lanes that are not live trace a zero direction: a miss
         hit, idx, t = query(src, vwhere(live, rdir, 0.0), torch.where(live, exclude, -2), sd,
                             cfg.bvh_stack_size)
@@ -389,10 +392,11 @@ def resolve_tail(f: Front, sd, cfg, active, l_oks, sky: V3, sky_c: V3,
 
 
 def front_step(state, b, pixel_id, sample_id, sd, cfg, query=nearest_planes,
-               refr: _t.Optional[Refr] = None):
+               refr: _t.Optional[Refr] = None, counts: _t.Optional[dict] = None):
     """The bounce up to its trace: rows, RNG, the refraction march (when
     ``sd.has_refract`` and no ``refr`` is given; ``query`` is its ray
-    query), ``bounce_front`` and the segment rays. ``state`` = (active,
+    query, ``counts`` gets its steps), ``bounce_front`` and the segment
+    rays. ``state`` = (active,
     ray_src V3, out_dir V3, hit_idx, killed); ``b`` is the bounce (an int,
     or a tensor of per-lane bounces). Returns (Front, seg_o, seg_d,
     seg_x): E + 2 segments (light i, then the HDR ray, then the
@@ -410,7 +414,8 @@ def front_step(state, b, pixel_id, sample_id, sd, cfg, query=nearest_planes,
                                  mat.emissive, cfg.sss_rate)[-1]
         refr = refract_march(
             is_dirref, tri, mat.refract_index, mat.normal, ray_src, out_dir, sd, cfg,
-            lambda site: rng.uniform(pixel_id, sample_id, b + 1, site, cfg.seed), query)
+            lambda site: rng.uniform(pixel_id, sample_id, b + 1, site, cfg.seed), query,
+            counts)
     f = bounce_front(active, ray_src, out_dir, tri, mat, us, sd, cfg, refr)
     nee_o = vwhere(f.needs_nee, f.nee_src, 0.0)
     seg_o = [nee_o] * (e_cnt + 1) + [vwhere(f.alive, f.cont_src, 0.0)]
@@ -456,14 +461,17 @@ def bounce_step(state, b: int, pixel_id, sample_id, sd, cfg, query=nearest_plane
     """One masked bounce. ``state`` = (active, ray_src V3, out_dir V3,
     hit_idx, killed); ``query`` is the ray query (of the march too).
     ``counts``, a dict, gets the bounce's active lanes added to
-    ``"bounces"`` and those whose branch is SSS entry or exit to
-    ``"sss_bounces"`` (0-d int64 tensors). Returns (state, (dir_b V3,
-    rate_b V3))."""
+    ``"bounces"``, those whose branch is SSS entry or exit to
+    ``"sss_bounces"``, those whose branch is direct refraction to
+    ``"refract_bounces"`` and their march's traces to ``"march_steps"``
+    (0-d int64 tensors). Returns (state, (dir_b V3, rate_b V3))."""
     m = state[1].x.shape[0]
-    f, seg_o, seg_d, seg_x = front_step(state, b, pixel_id, sample_id, sd, cfg, query)
+    f, seg_o, seg_d, seg_x = front_step(state, b, pixel_id, sample_id, sd, cfg, query,
+                                        counts=counts)
     if counts is not None:
         counts["bounces"] = counts.get("bounces", 0) + state[0].sum()
         counts["sss_bounces"] = counts.get("sss_bounces", 0) + (f.sss_entry | f.sss_exit).sum()
+        counts["refract_bounces"] = counts.get("refract_bounces", 0) + f.is_dirref.sum()
     # one nearest-hit batch of all segments
     bhit, bidx, bt = query(vcat(seg_o), vcat(seg_d), torch.cat(seg_x), sd,
                            cfg.bvh_stack_size)

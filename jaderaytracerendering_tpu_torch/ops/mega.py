@@ -9,10 +9,11 @@ scene on the CPU; anything else raises. ``LAUNCHES`` (ops/kernels.py)
 counts kernel launches, so a caller can show that a run went through the
 kernels: ``mega_render`` the megakernel's, ``mega_fold`` the fold's;
 while spans are recorded the counter ``ops.mega.launches`` counts the
-megakernel's launches too, and ``ops.mega.bounces`` and
-``ops.mega.sss_bounces`` the bounces its paths resolved (on the card
-from each launch's stamps, ``count_stamps``; the plain version as it
-renders).
+megakernel's launches too, ``ops.mega.bounces`` and
+``ops.mega.sss_bounces`` the bounces its paths resolved, and
+``ops.mega.refract_bounces`` and ``ops.mega.march_steps`` those that took
+direct refraction and their march's traces (on the card from each
+launch's stamps, ``count_stamps``; the plain version as it renders).
 
 The megakernel's work items are (pixel, sample) pairs, ``spp`` a pixel;
 each item leaves a float4 partial in a scratch buffer that the fold
@@ -66,9 +67,10 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
     sums over samples sample_base .. sample_base+spp-1 of the window's
     slots (``mega_render``), row 3 the useful rays
     (integrator/wavefront.trace_radiance_p, with the plain BVH walk on any
-    device). While spans are recorded it
-    adds its bounces to the counters ``ops.mega.bounces`` and
-    ``ops.mega.sss_bounces``, as the kernel's stamps do."""
+    device). While spans are recorded it adds its bounces to the counters
+    ``ops.mega.bounces``, ``ops.mega.sss_bounces``,
+    ``ops.mega.refract_bounces`` and ``ops.mega.march_steps``, as the
+    kernel's stamps do."""
     from ..integrator.render import SCAN_LANES, render_batch
     from ..integrator.wavefront import nearest_planes_plain
 
@@ -84,8 +86,8 @@ def mega_render_plain(sd, eye, rot, cfg, sample_base: int, spp: int, pix0: int =
         out[0:3, c0:c0 + ids.shape[0]] = rad.T
         out[3, c0:c0 + ids.shape[0]] = rays
     if counts:
-        logging.count("ops.mega.bounces", int(counts["bounces"]))
-        logging.count("ops.mega.sss_bounces", int(counts["sss_bounces"]))
+        for name in ("bounces", "sss_bounces", "refract_bounces", "march_steps"):
+            logging.count(f"ops.mega.{name}", int(counts.get(name, 0)))
     return out
 
 
@@ -97,9 +99,9 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
     n_px - 1 at step 1; the whole film by default) -> [4, n_px] f32
     (radiance sums, useful rays), column j for the window's slot j.
     ``eye`` [3] and ``rot`` [4, 4] are the camera. ``stamps``, a list,
-    receives one int64 [5] device tensor a launch (start, dry counter,
-    end: %globaltimer ns; then the bounces and the SSS bounces;
-    ``count_stamps``)."""
+    receives one int64 [7] device tensor a launch (start, dry counter,
+    end: %globaltimer ns; then the bounces, the SSS bounces, the direct
+    refraction bounces and their march steps; ``count_stamps``)."""
     if sd.device.type == "cpu":
         return mega_render_plain(sd, eye, rot, cfg, sample_base, spp, pix0, n_px, row_step)
     n_px = _window(cfg, pix0, n_px, row_step)
@@ -113,7 +115,7 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
     for i, (a, n) in enumerate(wins):
         st = None
         if stamps is not None and spp > 0:  # no samples: no megakernel to stamp
-            st = torch.full((5,), _NEVER, dtype=torch.int64, device=sd.device)
+            st = torch.full((7,), _NEVER, dtype=torch.int64, device=sd.device)
             st[2:] = 0
             stamps.append(st)
         rc = lib.mega_render(ctypes.byref(s), ctypes.byref(r), int(pix0), a, n,
@@ -128,18 +130,20 @@ def mega_render(sd, eye: torch.Tensor, rot: torch.Tensor, cfg, sample_base: int,
 
 
 def count_stamps(stamps: list) -> None:
-    """Add the launches' times, tails and bounces (``mega_render``'s
-    ``stamps``, read once the work is done) to the counters
-    ``ops.mega.launch_us`` (end less start) and ``ops.mega.tail_us`` (end
-    less the first handout that found the counter dry), rounded to whole
-    us over the list, ``ops.mega.bounces`` and ``ops.mega.sss_bounces``."""
+    """Add the launches' times, tails, bounces and marches
+    (``mega_render``'s ``stamps``, read once the work is done) to the
+    counters ``ops.mega.launch_us`` (end less start) and
+    ``ops.mega.tail_us`` (end less the first handout that found the
+    counter dry), rounded to whole us over the list, ``ops.mega.bounces``,
+    ``ops.mega.sss_bounces``, ``ops.mega.refract_bounces`` and
+    ``ops.mega.march_steps``."""
     if not stamps:
         return
     t = torch.stack(stamps).cpu()
     logging.count("ops.mega.launch_us", round(int((t[:, 2] - t[:, 0]).sum()) / 1e3))
     logging.count("ops.mega.tail_us", round(int((t[:, 2] - t[:, 1]).sum()) / 1e3))
-    logging.count("ops.mega.bounces", int(t[:, 3].sum()))
-    logging.count("ops.mega.sss_bounces", int(t[:, 4].sum()))
+    for i, name in enumerate(("bounces", "sss_bounces", "refract_bounces", "march_steps"), 3):
+        logging.count(f"ops.mega.{name}", int(t[:, i].sum()))
 
 
 def render_preview_mega_plain(sd, eye, rot, cfg, sample_base: int, spp: int,

@@ -17,8 +17,10 @@ timeline on the kernels' clock, and is kept in memory
 The megakernel's counters (ops/mega.py, integrator/mega.py):
 ``ops.mega.launches``, ``ops.mega.launch_us`` and ``ops.mega.tail_us``
 (its launches and their %globaltimer time and tail), ``ops.mega.bounces``
-(every bounce its paths resolved) and ``ops.mega.sss_bounces`` (those
-whose branch was SSS entry or exit).
+(every bounce its paths resolved), ``ops.mega.sss_bounces`` (those
+whose branch was SSS entry or exit), ``ops.mega.refract_bounces`` (those
+whose branch was direct refraction) and ``ops.mega.march_steps`` (the
+traces of their refraction marches, each one walk).
 
 Each span carries the number of its request (``Span.item``) and the
 index of its parent in ``spans()``. A top-level span opened with

@@ -688,24 +688,31 @@ def _closeup_camera():
                                   eye_center=np.asarray(c["center"], np.float64))
 
 
-@pytest.mark.parametrize("refract", [False, True], ids=["HR-false", "HR-true"])
-def test_mega_bounce_counts_equal_the_plain_paths(jade_cuda, refract):
-    """At the close-up framing of a 2,000-triangle jade statue, the
-    kernel's stamps count as many bounces and SSS bounces as the plain
-    version resolves; HR-true makes the floor DIR_REFRACT, so the
-    ``<true>`` instance runs with the statue still jade."""
+@pytest.mark.parametrize("glass", [None, "floor", "buddha"],
+                         ids=["HR-false", "HR-true", "statue-refract"])
+def test_mega_bounce_counts_equal_the_plain_paths(jade_cuda, glass):
+    """At the close-up framing of a 2,000-triangle statue, the kernel's
+    stamps count as many bounces, SSS bounces, direct refraction bounces
+    and march steps as the plain version resolves. HR-false: the jade
+    scene, whose ``<false>`` instance leaves the last two words at 0;
+    HR-true: the floor made DIR_REFRACT, the statue still jade;
+    statue-refract: the statue made DIR_REFRACT, its other fields the
+    jade's (the benchmark's refracting statue)."""
     from jaderaytracerendering_tpu_torch.scene import material
 
     ds = demo.jade_scene(n_buddha_tris=2000, env_shape=(32, 64))
-    if refract:
-        floor = next(i for i, o in enumerate(ds.objects) if o.name == "floor")
-        glass = dataclasses.replace(ds.objects[floor].material,
-                                    refract_mode=material.DIR_REFRACT, refract_index=1.5,
-                                    refract_rate=(0.9, 0.9, 0.9))
-        ds.objects[floor] = dataclasses.replace(ds.objects[floor], material=glass)
+    if glass is not None:
+        i = next(i for i, o in enumerate(ds.objects) if o.name == glass)
+        fields = {"refract_index": 1.5, "refract_rate": (0.9, 0.9, 0.9)} if glass == "floor" else {}
+        mat = dataclasses.replace(ds.objects[i].material, refract_mode=material.DIR_REFRACT,
+                                  **fields)
+        ds.objects[i] = dataclasses.replace(ds.objects[i], material=mat)
     sd = assemble(ds.objects, ds.env_map, device="cuda")
-    assert sd.has_refract == refract
-    cfg = RenderConfig(width=48, height=48, spp=4, max_depth=8, max_refract_bounces=16)
+    assert sd.has_refract == (glass is not None)
+    # the plain version's ops under the profiler are the test's cost: the
+    # refracting statue marches on most paths, so its paths are cut shorter
+    cfg = RenderConfig(width=48, height=48, spp=4, max_depth=4 if glass == "buddha" else 8,
+                       max_refract_bounces=16)
     eye, rot = camera_mod.camera_tensors(_closeup_camera(), "cpu")
     with profile(activities=[ProfilerActivity.CPU]):
         tlog.reset()
@@ -717,8 +724,16 @@ def test_mega_bounce_counts_equal_the_plain_paths(jade_cuda, refract):
         p = megak.mega_render_plain(sd, eye.cuda(), rot.cuda(), cfg, 0, cfg.spp)
         got_p = dict(tlog.counters())
     tlog.reset()
-    assert got_k["ops.mega.bounces"] == got_p["ops.mega.bounces"] > 0
-    assert got_k["ops.mega.sss_bounces"] == got_p["ops.mega.sss_bounces"] > 0
+    for name in ("bounces", "sss_bounces", "refract_bounces", "march_steps"):
+        assert got_k[f"ops.mega.{name}"] == got_p[f"ops.mega.{name}"], name
+    assert got_k["ops.mega.bounces"] > 0
+    assert (got_k["ops.mega.sss_bounces"] > 0) == (glass != "buddha")
+    refract, steps = got_k["ops.mega.refract_bounces"], got_k["ops.mega.march_steps"]
+    if glass is None:
+        assert all(int(st[5]) == int(st[6]) == 0 for st in stamps)
+    if glass == "buddha":
+        assert 0 < refract <= steps <= cfg.max_refract_bounces * refract
+    assert refract <= steps <= cfg.max_refract_bounces * refract
     assert torch.equal(k[3], p[3])  # the useful rays: 1 + (E + 2) a bounce
 
 

@@ -309,14 +309,16 @@ def test_the_main_path_launch_is_one_launch_of_one_gib_of_scratch():
 def test_count_stamps_adds_launch_and_tail_us():
     """Each launch's stamps (start, the counter found dry, end; ns) add
     end - start to ``ops.mega.launch_us`` and end - dry to ``tail_us``,
-    summed over the launches and rounded to whole us, and its two counts
-    to ``ops.mega.bounces`` and ``ops.mega.sss_bounces``, while recording."""
+    summed over the launches and rounded to whole us, and its four counts
+    to ``ops.mega.bounces``, ``ops.mega.sss_bounces``,
+    ``ops.mega.refract_bounces`` and ``ops.mega.march_steps``, while
+    recording."""
     from torch.profiler import ProfilerActivity, profile
 
     from jaderaytracerendering_tpu_torch.utils import logging as tlog
 
-    stamps = [torch.tensor([1_000, 41_000, 43_500, 7_000, 3_000]),
-              torch.tensor([50_000, 90_400, 93_000, 5_000_000_000, 11])]
+    stamps = [torch.tensor([1_000, 41_000, 43_500, 7_000, 3_000, 0, 0]),
+              torch.tensor([50_000, 90_400, 93_000, 5_000_000_000, 11, 600, 4_000_000_001])]
     tlog.reset()
     megak.count_stamps(stamps)
     assert tlog.counters() == {}  # no profiler: nothing recorded
@@ -327,7 +329,8 @@ def test_count_stamps_adds_launch_and_tail_us():
         got = dict(tlog.counters())
     tlog.reset()
     assert got == {"ops.mega.launch_us": 86, "ops.mega.tail_us": 5,
-                   "ops.mega.bounces": 5_000_007_000, "ops.mega.sss_bounces": 3_011}
+                   "ops.mega.bounces": 5_000_007_000, "ops.mega.sss_bounces": 3_011,
+                   "ops.mega.refract_bounces": 600, "ops.mega.march_steps": 4_000_000_001}
 
 
 def test_bind_refuses_a_library_without_the_entry_point():
